@@ -7,7 +7,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ops/kern/csrc with nvcc;
   3. launch the probe kernel K0 and check x + 1;
-  4. run K1, K2 and K3 at the main path's shapes beside their plain
+  4. run K1, K2, K3 and the three point-chain kernels (point_ladder as
+     the per-signature ladder, the comb and Horner; decompress;
+     point_multiples) at the main path's shapes beside their plain
      PyTorch versions on the card, require exact equality, and time both
      (the kernel also as launches replayed from a CUDA graph, which
      leaves out the host's overhead between calls);
@@ -17,11 +19,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      a 3-vote request (the per-signature program), two OP_VERIFY_BULK
      requests of 1024 signatures (RLC at 2048 MSM points), OP_STATS.
      Every mask must equal the host reference row for row; the probe
-     must have been launched at the sidecar's boot and K1-K3 by the
-     requests (launches are counted per grid, so K3 counts log2(B));
+     must have been launched at the sidecar's boot and every other
+     kernel by the requests (launches are counted per grid, so K3
+     counts log2(B));
   6. profile a QC and a bulk batch through the RLC program, and the
      bulk batch through the per-signature program at 1024 rows: host
-     wall time, and the card's busy time from torch.profiler.
+     wall time split into the program's pack, dispatch and fetch
+     stages, and the card's busy time from torch.profiler.
 
 The line before the last is a JSON object listing the kernels with
 their launches on the main path (over the requests, the probe's at
@@ -42,23 +46,43 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet:
-# HBM3 bandwidth, and float32 outside the tensor cores).  The kernels do
-# int32 scalar arithmetic, for which the sheet gives no rate; the card
-# issues int32 multiply-adds at no more than its float32 rate, so times
-# computed from that rate are lower bounds.
+# Peak rates of one H100 SXM at its 700 W limit.  Bytes: HBM3 at 3.35
+# TB/s (NVIDIA's data sheet).  The kernels do int32 scalar arithmetic:
+# an SM of compute capability 9.0 retires 64 32-bit integer adds,
+# multiply-adds, shifts or logical operations per clock (CUDA C++
+# Programming Guide, throughput of native arithmetic instructions), on
+# 132 SMs at the 1.98 GHz boost clock that the data sheet's 67 TFLOP/s
+# float32 rate implies (132 SMs x 128 lanes x 2 x 1.98 GHz).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_SCALAR_OPS_PER_S = 67e12
+PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
-# Integer operations per unit of work, counting a multiply-add as two
+# int32 instructions per unit of work, a multiply-add counting as one
 # and a carry step as three per limb (mask, shift, add).
 OPS_CARRY_STEP = 3 * 32
-OPS_FIELD_MUL = 2 * 32 * 32 + 2 * 32 + 4 * OPS_CARRY_STEP
+OPS_FIELD_MUL = 32 * 32 + 32 + 4 * OPS_CARRY_STEP   # products, x38 fold
 OPS_FIELD_ADD = 32 + OPS_CARRY_STEP
 OPS_FIELD_SUB = 2 * 32 + 2 * OPS_CARRY_STEP
-OPS_TREE_NODE = (9 * OPS_FIELD_MUL + 5 * OPS_FIELD_ADD + 4 * OPS_FIELD_SUB)
-OPS_MONT_ROW = (2 * 32 * 32 + 2 * 528 + 2 * 32 * 32    # T, m, m*L
+OPS_TO_CACHED = OPS_FIELD_MUL + OPS_FIELD_ADD + OPS_FIELD_SUB
+OPS_ADD_CACHED = 8 * OPS_FIELD_MUL + 4 * OPS_FIELD_ADD + 3 * OPS_FIELD_SUB
+OPS_DBL = 8 * OPS_FIELD_MUL + 3 * OPS_FIELD_ADD + 5 * OPS_FIELD_SUB
+OPS_DBL_NO_T = OPS_DBL - OPS_FIELD_MUL
+OPS_TREE_NODE = OPS_TO_CACHED + OPS_ADD_CACHED
+OPS_MONT_ROW = (32 * 32 + 528 + 32 * 32                # T, m, m*L
                 + 3 * (64 + 32 + 64) + 4 * 32)         # ripples, subtract
+# canonical: two 32-limb ripples (add, mask, shift), the x38 adds, two
+# borrow chains (subtract twice, compare, shift-add) and the select.
+OPS_CANONICAL = 2 * 3 * 32 + 2 + 2 * 4 * 32 + 32
+# decompress: 275 multiplies (251 squarings and 11 multiplies in the
+# pow chain), one add, three subtractions and four canonical forms.
+OPS_DECOMPRESS_ROW = (275 * OPS_FIELD_MUL + OPS_FIELD_ADD
+                      + 3 * OPS_FIELD_SUB + 4 * OPS_CANONICAL)
+# point_multiples: to_cached(P) and 14 additions (extended output).
+OPS_MULTIPLES_ROW = OPS_TO_CACHED + 14 * OPS_ADD_CACHED
+
+
+def ops_ladder_row(steps: int, ndbl: int) -> int:
+    dbl = (ndbl - 1) * OPS_DBL_NO_T + OPS_DBL if ndbl else 0
+    return steps * (dbl + OPS_ADD_CACHED)
 
 
 def fail(msg: str) -> None:
@@ -68,7 +92,7 @@ def fail(msg: str) -> None:
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -112,6 +136,12 @@ def graph_ms(fn, iters: int) -> float:
 
 
 def max_abs_err(a, b) -> int:
+    """Largest absolute difference; tuples compare element by element
+    (a shape mismatch counts as a difference of -1)."""
+    if isinstance(a, tuple):
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
+    if a.shape != b.shape:
+        return -1
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
@@ -122,7 +152,9 @@ def kernel_phase(dev, rng):
 
     from hotstuff_tpu_torch.ops import ed25519 as E
     from hotstuff_tpu_torch.ops.kern import field_mul as K1
+    from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
     from hotstuff_tpu_torch.ops.kern import msm_accum as K3
+    from hotstuff_tpu_torch.ops.kern import point_chain as PC
     from hotstuff_tpu_torch.ops.kern import probe as K0
     from hotstuff_tpu_torch.ops.kern import scalar_mont as K2
     from hotstuff_tpu_torch.utils.intmath import L
@@ -134,7 +166,7 @@ def kernel_phase(dev, rng):
         want = plain(*args)
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
-        if got.shape != want.shape or err != 0:
+        if err != 0:
             fail(f"{name} at {shape} differs from its plain version "
                  f"(max abs err {err})")
         ms = time_ms(lambda: kernel(*args), iters)
@@ -215,6 +247,75 @@ def kernel_phase(dev, rng):
            K3.msm_window_accum_plain, (table, digits),
            table.numel() * 4 + digits.numel() * 4 + 64 * 128 * 4,
            64 * (b - 1) * OPS_TREE_NODE, 10)
+
+    # The point-chain kernels (K1 redesigned), at the shapes the verify
+    # programs give them: a 1024-signature batch decompresses 2048
+    # points, builds a 2048-point MSM table (RLC) or 1024 ladder tables
+    # (per-signature), and runs the ladder and the comb at 1024 rows;
+    # the RLC finish runs Horner and the comb at batch 1.
+    chain_src = "hotstuff_tpu_torch/ops/kern/csrc/point_chain.cu"
+    pt_bytes = 4 * 32 * 4
+
+    # decompress: encodings of 256 real points (multiples of the base
+    # point) tiled over 1792 rows, and 256 random rows (about half of
+    # them not on the curve).
+    enc = [ref.encode_point(ref.scalar_mult(int(k), ref.B))
+           for k in rng.integers(1, 2**62, 256)]
+    arr = np.frombuffer(b"".join(enc), np.uint8).reshape(256, 32)
+    arr = np.concatenate([np.tile(arr, (7, 1)),
+                          rng.integers(0, 256, (256, 32)).astype(np.uint8)])
+    y_limbs, sign = E.split_y_sign(torch.from_numpy(arr).to(dev))
+    n = y_limbs.shape[0]
+    record("decompress", chain_src, rep1, f"({n}, 32)", PC.decompress,
+           PC.decompress_plain, (y_limbs, sign),
+           n * (32 * 4 + 4) + n * (pt_bytes + 1), n * OPS_DECOMPRESS_ROW, 20)
+    pts, _ = PC.decompress(y_limbs, sign)
+    pts = pts[:1792].contiguous()                # real points only
+
+    # point_multiples: the RLC bulk batch's 2048-point MSM table.
+    b = 2048
+    mpts = pts.repeat(2, 1, 1)[:b].contiguous()
+    record("point_multiples", chain_src, rep1, f"({b}, 4, 32)",
+           PC.point_multiples, PC.point_multiples_plain,
+           (mpts, False, False), b * pt_bytes * (1 + 16),
+           b * OPS_MULTIPLES_ROW, 20)
+
+    def ladder_case(table, digits, ndbl):
+        # Bytes: the table entries this run's digits select (each once),
+        # the digits and the output.
+        bt, j = table.shape[:2]
+        rows_, steps = digits.shape
+        r_idx = (torch.arange(rows_, device=dev) if bt != 1 else
+                 torch.zeros(rows_, dtype=torch.long, device=dev))
+        s_idx = (torch.arange(steps, device=dev) if j != 1 else
+                 torch.zeros(steps, dtype=torch.long, device=dev))
+        key = ((r_idx[:, None] * j + s_idx[None, :]) * table.shape[2]
+               + digits.long())
+        entries = int(torch.unique(key).numel())
+        return (f"table {tuple(table.shape)}, digits {tuple(digits.shape)}",
+                PC.point_ladder, PC.point_ladder_plain, (table, digits, ndbl),
+                entries * pt_bytes + digits.numel() * 4 + rows_ * pt_bytes,
+                rows_ * ops_ladder_row(steps, ndbl), 10)
+
+    # The per-signature ladder at 1024 rows: cached tables of -A.
+    b = 1024
+    ltable = PC.point_multiples(pts[:b].contiguous(), cached=True,
+                                negate=True).unsqueeze(1)
+    k_digits = torch.from_numpy(
+        rng.integers(0, 16, (b, 64)).astype(np.int32)).to(dev)
+    record("point_ladder", chain_src, rep1,
+           *ladder_case(ltable, k_digits, 4))
+    comb = E.comb_table_on(dev).unsqueeze(0)
+    s_digits = torch.from_numpy(
+        rng.integers(0, 256, (b, 32)).astype(np.int32)).to(dev)
+    for label, case in (
+            ("comb1024", ladder_case(comb, s_digits, 0)),
+            ("comb1", ladder_case(comb, s_digits[:1].contiguous(), 0)),
+            ("horner1", ladder_case(
+                E.to_cached(pts[:64]).reshape(1, 64, 1, 4, 32),
+                torch.zeros((1, 64), dtype=torch.int32, device=dev), 4))):
+        rows[-1].update({f"{label}_{k}": v for k, v in
+                         measure("point_ladder", *case).items()})
     return rows
 
 
@@ -342,35 +443,79 @@ def sidecar_phase(dev, reqs, want):
     return boot, launches, per_kind
 
 
+def ops_by_caller(run) -> dict:
+    """Run ``run()`` once and count the PyTorch operators it dispatches
+    (views excluded: they launch nothing on the card), each under the
+    innermost function of hotstuff_tpu_torch outside ops/kern that
+    called it (a kernel module's plain helpers count under their
+    caller), as "module.py:function"."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    root = os.path.join(REPO, "hotstuff_tpu_torch") + os.sep
+    kern_dir = os.path.join(root, "ops", "kern") + os.sep
+    counts: dict = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                f = sys._getframe(1)
+                while f is not None and (
+                        not f.f_code.co_filename.startswith(root)
+                        or f.f_code.co_filename.startswith(kern_dir)):
+                    f = f.f_back
+                where = ("outside the package" if f is None else
+                         f"{os.path.basename(f.f_code.co_filename)}:"
+                         f"{f.f_code.co_name}")
+                counts[where] = counts.get(where, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        run()
+    return counts
+
+
 def profile_phase(dev, reqs, want) -> None:
     """Phase 6: where a request's time goes.  A valid QC (67 votes) and
     a 1024-signature bulk batch go straight through the RLC program, and
     the bulk batch also through the per-signature program (no socket, no
-    verdict cache): the host wall time of three runs, then one run under
-    torch.profiler, whose device events give the card's busy time and
-    the kernels that fill it."""
+    verdict cache): the host wall time of three runs, each split into
+    its stages (pack: host preparation and the copy to the card;
+    dispatch: issuing the device program; fetch: waiting for the card
+    and the copy back), then one run under torch.profiler, whose device
+    events give the card's busy time and the kernels that fill it, and
+    one run that counts the operators each function of the port
+    dispatches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from hotstuff_tpu_torch.crypto import eddsa
 
     cuda = torch.autograd.DeviceType.CUDA
-    cases = (("QC of 67 votes, RLC", eddsa.verify_batch_rlc, 0),
-             ("bulk of 1024, RLC", eddsa.verify_batch_rlc, -1),
-             ("bulk of 1024, per-signature", eddsa.verify_batch, -1))
-    for label, program, i in cases:
+    cases = (("QC of 67 votes, RLC", eddsa.verify_batch_rlc_pack, 0),
+             ("bulk of 1024, RLC", eddsa.verify_batch_rlc_pack, -1),
+             ("bulk of 1024, per-signature", eddsa.verify_batch_pack, -1))
+    for label, pack, i in cases:
         msgs, pks, sigs = reqs[i][2]
-        walls = []
+        walls, stages = [], []
         for _ in range(3):
             t0 = time.perf_counter()
-            mask = program(msgs, pks, sigs, device=dev)
-            walls.append((time.perf_counter() - t0) * 1e3)
+            dispatch = pack(msgs, pks, sigs, device=dev)
+            t1 = time.perf_counter()
+            fetch = dispatch()
+            t2 = time.perf_counter()
+            mask = fetch()
+            t3 = time.perf_counter()
+            walls.append((t3 - t0) * 1e3)
+            stages.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                           (t3 - t2) * 1e3))
             if mask.tolist() != want[i]:
                 fail(f"profile {label}: mask differs from the host reference")
-        wall = sorted(walls)[1]
+        order = sorted(range(3), key=walls.__getitem__)
+        wall = walls[order[1]]
+        pack_ms, dispatch_ms, fetch_ms = stages[order[1]]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            program(msgs, pks, sigs, device=dev)
+            pack(msgs, pks, sigs, device=dev)()()
             torch.cuda.synchronize()
         by_name: dict = {}
         for e in prof.events():
@@ -382,12 +527,17 @@ def profile_phase(dev, reqs, want) -> None:
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
         share = f"{busy_ms / wall:.4f}" if events else "not measured"
         print(f"profile {label}: wall {wall:.3f} ms (median of 3: "
-              f"{', '.join(f'{w:.3f}' for w in walls)}); device events "
-              f"{events}, device busy {busy_ms:.3f} ms, busy share of "
-              f"wall {share}", flush=True)
+              f"{', '.join(f'{w:.3f}' for w in walls)}; its pack "
+              f"{pack_ms:.3f}, dispatch {dispatch_ms:.3f}, fetch "
+              f"{fetch_ms:.3f}); device events {events}, device busy "
+              f"{busy_ms:.3f} ms, busy share of wall {share}", flush=True)
         for name, (n, us) in top:
             print(f"  device {us / 1e3:.3f} ms in {n} events: {name[:90]}",
                   flush=True)
+        ops = ops_by_caller(lambda: pack(msgs, pks, sigs, device=dev)()())
+        top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+        print(f"  operators dispatched: {sum(ops.values())}; by caller: "
+              + ", ".join(f"{k} {n}" for k, n in top_ops), flush=True)
 
 
 def main() -> int:
@@ -425,7 +575,8 @@ def main() -> int:
     print(f"kernel build and load: {time.monotonic() - t0:.3f} s "
           f"(nvcc wall {build.build_seconds})", flush=True)
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or line.startswith("==")
+                or "entry function" in line):
             print("  ptxas:", line.strip(), flush=True)
 
     rng = np.random.default_rng(20261017)

@@ -13,7 +13,10 @@ The check [S]B - [k]A == R splits into a fixed-base comb for [S]B (32
 additions against a host-built table) and a 4-bit windowed ladder for
 [k](-A) (64 steps of four doublings and one addition).  The RLC check
 collapses a batch to one multi-scalar multiply whose window sums run in
-kernel K3 (ops/kern/msm_accum).
+kernel K3 (ops/kern/msm_accum).  Each whole loop (ladder, comb, Horner,
+decompression, the 16-entry tables) is one launch of a point-chain
+kernel (ops/kern/point_chain); the formulas below are their plain
+versions' building blocks and serve the few operations left outside.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from . import field25519 as F
 from . import scalar25519 as S
 from ..utils.intmath import BX, BY, D, L, P, SQRT_M1, next_pow2
+from .kern import point_chain as PC
 from .kern.msm_accum import msm_window_accum
 
 K2D = (2 * D) % P
@@ -80,38 +84,41 @@ def point_dbl(p: torch.Tensor, with_t: bool = True) -> torch.Tensor:
 # Decompression (x-recovery)
 # ---------------------------------------------------------------------------
 
-def decompress_t(y_limbs: torch.Tensor, sign_bit: torch.Tensor):
+def decompress_t(y_limbs: torch.Tensor, sign_bit: torch.Tensor, mul=F.mul):
     """(..., 32) canonical y limbs + (...,) sign bit ->
     ((x, y, z, t) tuple, ok mask): RFC 8032 section 5.1.3 x-recovery,
-    x = u v^3 (u v^7)^((p-5)/8) with u = y^2 - 1, v = d y^2 + 1."""
+    x = u v^3 (u v^7)^((p-5)/8) with u = y^2 - 1, v = d y^2 + 1.
+    ``mul`` as in ``to_cached_t``; the verify programs run this as the
+    decompress kernel (``decompress``)."""
     one = _const(1, y_limbs).expand_as(y_limbs)
     dd = _const(D, y_limbs).expand_as(y_limbs)
-    y2 = F.sqr(y_limbs)
+    y2 = mul(y_limbs, y_limbs)
     u = F.sub(y2, one)
-    v = F.add(F.mul(dd, y2), one)
-    v3 = F.mul(F.sqr(v), v)
-    v7 = F.mul(F.sqr(v3), v)
-    x = F.mul(F.mul(u, v3), F.pow_p58(F.mul(u, v7)))
-    vxx = F.mul(v, F.sqr(x))
+    v = F.add(mul(dd, y2), one)
+    v3 = mul(mul(v, v), v)
+    v7 = mul(mul(v3, v3), v)
+    x = mul(mul(u, v3), F.pow_p58(mul(u, v7), mul=mul))
+    vxx = mul(v, mul(x, x))
     ok_direct = F.eq(vxx, u)
     ok_twist = F.eq(vxx, F.neg(u))
     x = torch.where(ok_twist.unsqueeze(-1),
-                    F.mul(x, _const(SQRT_M1, x).expand_as(x)), x)
+                    mul(x, _const(SQRT_M1, x).expand_as(x)), x)
     ok = ok_direct | ok_twist
     # sign adjustment; x == 0 with sign 1 is invalid
     x_zero = F.is_zero(x)
     flip = (F.parity(x) != sign_bit) & ~x_zero
     x = torch.where(flip.unsqueeze(-1), F.neg(x), x)
     ok = ok & ~(x_zero & (sign_bit == 1))
-    t = F.mul(x, y_limbs)
+    t = mul(x, y_limbs)
     z = one
     return (x, y_limbs, z, t), ok
 
 
 def decompress(y_limbs: torch.Tensor, sign_bit: torch.Tensor):
-    """Packed-layout wrapper over decompress_t: -> ((..., 4, 32) ext, ok)."""
-    (x, y, z, t), ok = decompress_t(y_limbs, sign_bit)
-    return _pack(x, y, z, t), ok
+    """(B, 32) y limbs + (B,) sign bits -> ((B, 4, 32) ext, (B,) ok):
+    decompress_t in one launch of the decompress kernel."""
+    return PC.decompress(y_limbs.contiguous(),
+                         sign_bit.to(torch.int32).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -126,8 +133,8 @@ def identity_t(batch_shape=(), device="cpu"):
 
 def to_cached_t(p, mul=F.mul):
     """(x, y, z, t) -> cached (y+x, y-x, z, 2d*t).  ``mul`` is the field
-    multiply: K3's plain version passes K1's plain version, so that it
-    launches no kernel on the card."""
+    multiply: the plain versions of K3 and the point-chain kernels pass
+    K1's plain version, so that they launch no kernel on the card."""
     x, y, z, t = p
     k2d = _const(K2D, t).expand_as(t)
     return (F.add(y, x), F.sub(y, x), z, mul(t, k2d))
@@ -150,22 +157,23 @@ def add_t(p, qc, mul=F.mul):
     return (mul(e, f), mul(g, h), mul(f, g), mul(e, h))
 
 
-def dbl_t(p, with_t: bool = True):
+def dbl_t(p, with_t: bool = True, mul=F.mul):
     """Doubling on tuples (dbl-2008-hwcd, a = -1): 4M+4S (3M+4S without
     T).  Accepts (x, y, z) or (x, y, z, t); returns a 3-tuple when
-    with_t=False."""
+    with_t=False.  ``mul`` as in ``to_cached_t``."""
     x1, y1, z1 = p[0], p[1], p[2]
-    a = F.sqr(x1)
-    b = F.sqr(y1)
-    zz = F.sqr(z1)
+    a = mul(x1, x1)
+    b = mul(y1, y1)
+    zz = mul(z1, z1)
     c = F.add(zz, zz)
-    e = F.sub(F.sub(F.sqr(F.add(x1, y1)), a), b)   # 2*X1*Y1
+    s = F.add(x1, y1)
+    e = F.sub(F.sub(mul(s, s), a), b)   # 2*X1*Y1
     g = F.sub(b, a)
     f = F.sub(g, c)
     h = F.neg(F.add(a, b))
     if with_t:
-        return (F.mul(e, f), F.mul(g, h), F.mul(f, g), F.mul(e, h))
-    return (F.mul(e, f), F.mul(g, h), F.mul(f, g))
+        return (mul(e, f), mul(g, h), mul(f, g), mul(e, h))
+    return (mul(e, f), mul(g, h), mul(f, g))
 
 
 # ---------------------------------------------------------------------------
@@ -261,12 +269,6 @@ def comb_table_on(device) -> torch.Tensor:
 # Batched verification: the per-signature program
 # ---------------------------------------------------------------------------
 
-def _digit_select(table: torch.Tensor, digit: torch.Tensor) -> torch.Tensor:
-    """table (B, K, 4, 32), digit (B,) in [0, K) -> (B, 4, 32)."""
-    rows = torch.arange(table.shape[0], device=table.device)
-    return table[rows, digit.long()]
-
-
 def unpack_nibbles_msb(k_bytes: torch.Tensor) -> torch.Tensor:
     """(B, 32) little-endian scalar bytes -> (B, 64) int32 MSB-first
     4-bit digits."""
@@ -318,41 +320,25 @@ def verify_prepared(ay, a_sign, ry, r_sign, s_digits, k_digits):
     int32 x-parity bits; s_digits (B, 32) int32 base-256 digits of S;
     k_digits (B, 64) int32 MSB-first base-16 digits of k.
     Returns the (B,) bool validity mask."""
-    batch_shape = ay.shape[:-1]
-    dev = ay.device
     n = ay.shape[0]
-    both_pt, ok_both = decompress_t(torch.cat([ay, ry], dim=0),
-                                    torch.cat([a_sign, r_sign], dim=0))
-    a_pt = tuple(c[:n] for c in both_pt)
-    r_pt = tuple(c[n:] for c in both_pt)
+    both_pt, ok_both = decompress(torch.cat([ay, ry], dim=0),
+                                  torch.cat([a_sign, r_sign], dim=0))
     ok_a, ok_r = ok_both[:n], ok_both[n:]
 
     # -- variable-base half: [k](-A), 4-bit windows -------------------------
-    ax, ay_l, az, at = a_pt
-    neg_a = (F.neg(ax), ay_l, az, F.neg(at))
-    neg_a_cached = to_cached_t(neg_a)
-    entries = [identity_t(batch_shape, dev), neg_a]
-    for _ in range(2, 16):
-        entries.append(add_t(entries[-1], neg_a_cached))
-    table = torch.stack([_pack(*to_cached_t(e)) for e in entries], dim=-3)
-
-    ka_pt = identity_ext(batch_shape, dev)
-    for step in range(64):
-        p = point_dbl(ka_pt, with_t=False)
-        p = point_dbl(p, with_t=False)
-        p = point_dbl(p, with_t=False)
-        p = point_dbl(p)  # the add below reads T
-        ka_pt = point_add(p, _digit_select(table, k_digits[:, step]))
+    # The cached 16-entry table of d*(-A), then 64 steps of four
+    # doublings and one addition: one launch each.
+    table = PC.point_multiples(both_pt[:n], cached=True, negate=True)
+    ka_pt = PC.point_ladder(table.unsqueeze(1),
+                            k_digits.to(torch.int32).contiguous(), 4)
 
     # -- fixed-base half: [S]B via the comb ---------------------------------
-    comb = comb_table_on(dev)
-    sb_pt = identity_ext(batch_shape, dev)
-    for j in range(_COMB_POSITIONS):
-        sb_pt = point_add(sb_pt, comb[j][s_digits[:, j].long()])
+    sb_pt = PC.point_ladder(comb_table_on(ay.device).unsqueeze(0),
+                            s_digits.to(torch.int32).contiguous(), 0)
 
     lhs = point_add(sb_pt, to_cached(ka_pt))
     x3, y3, z3, _ = _unpack(lhs)
-    rx, ry_, rz = r_pt[0], r_pt[1], r_pt[2]
+    rx, ry_, rz, _ = _unpack(both_pt[n:])
 
     # -- projective equality: all four cross-products in one multiply ------
     cross = F.canonical(F.mul(_pack(x3, rx, y3, ry_),
@@ -376,12 +362,8 @@ def verify_prepared(ay, a_sign, ry, r_sign, s_digits, k_digits):
 
 def msm_table(points: torch.Tensor) -> torch.Tensor:
     """(B, 4, 32) ext points -> (B, 16, 4, 32) ext table of 0..15
-    multiples (entry 0 is the identity)."""
-    cached_p = to_cached(points)
-    entries = [identity_ext(points.shape[:-2], points.device), points]
-    for _ in range(2, 16):
-        entries.append(point_add(entries[-1], cached_p))
-    return torch.stack(entries, dim=-3)
+    multiples (entry 0 is the identity), in one launch."""
+    return PC.point_multiples(points.contiguous())
 
 
 def msm_window_sums(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
@@ -400,26 +382,19 @@ def msm_window_sums(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 
 def msm_horner(wsums: torch.Tensor) -> torch.Tensor:
     """(64, 4, 32) MSB-first window sums -> (4, 32) ext total: 64 steps
-    of 4 doublings + 1 addition at batch 1."""
-    acc = identity_ext((), wsums.device)
-    for w in wsums:
-        acc = point_dbl(acc, with_t=False)
-        acc = point_dbl(acc, with_t=False)
-        acc = point_dbl(acc, with_t=False)
-        acc = point_dbl(acc)
-        acc = point_add(acc, to_cached(w))
-    return acc
+    of 4 doublings + 1 addition at batch 1, in one ladder launch whose
+    table holds one cached window sum per step (to_cached of all 64 at
+    once gives the limbs that 64 separate calls would)."""
+    table = to_cached(wsums).reshape(1, 64, 1, 4, F.NLIMBS)
+    digits = torch.zeros((1, 64), dtype=torch.int32, device=wsums.device)
+    return PC.point_ladder(table, digits, 4)[0]
 
 
 def comb_mul_base(c_digits: torch.Tensor) -> torch.Tensor:
     """[c]B for one scalar given as (32,) int32 base-256 little-endian
-    digits: the fixed-base comb at batch shape ()."""
-    comb = comb_table_on(c_digits.device)
-    acc = identity_ext((), c_digits.device)
-    digits = c_digits.long()
-    for j in range(_COMB_POSITIONS):
-        acc = point_add(acc, comb[j][digits[j]])
-    return acc
+    digits: the fixed-base comb at batch 1, in one ladder launch."""
+    return PC.point_ladder(comb_table_on(c_digits.device).unsqueeze(0),
+                           c_digits.to(torch.int32).reshape(1, -1), 0)[0]
 
 
 def rlc_partials(packed: torch.Tensor, z: torch.Tensor):

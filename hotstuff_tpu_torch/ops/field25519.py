@@ -212,24 +212,26 @@ def inv(x: torch.Tensor) -> torch.Tensor:
     return pow_const(x, P - 2)
 
 
-def _pow_2k(x: torch.Tensor, k: int) -> torch.Tensor:
+def _pow_2k(x: torch.Tensor, k: int, mul=mul) -> torch.Tensor:
     """x^(2^k): k squarings."""
     for _ in range(k):
-        x = sqr(x)
+        x = mul(x, x)
     return x
 
 
-def pow_p58(x: torch.Tensor) -> torch.Tensor:
+def pow_p58(x: torch.Tensor, mul=mul) -> torch.Tensor:
     """x^((p-5)/8) = x^(2^252 - 3), the x-recovery exponent, by the
-    ref10 addition chain (251 squarings + 11 multiplies)."""
-    x2 = mul(sqr(x), x)                       # x^(2^2 - 1)
-    x4 = mul(_pow_2k(x2, 2), x2)              # x^(2^4 - 1)
-    x5 = mul(sqr(x4), x)                      # x^(2^5 - 1)
-    x10 = mul(_pow_2k(x5, 5), x5)             # x^(2^10 - 1)
-    x20 = mul(_pow_2k(x10, 10), x10)          # x^(2^20 - 1)
-    x40 = mul(_pow_2k(x20, 20), x20)          # x^(2^40 - 1)
-    x50 = mul(_pow_2k(x40, 10), x10)          # x^(2^50 - 1)
-    x100 = mul(_pow_2k(x50, 50), x50)         # x^(2^100 - 1)
-    x200 = mul(_pow_2k(x100, 100), x100)      # x^(2^200 - 1)
-    x250 = mul(_pow_2k(x200, 50), x50)        # x^(2^250 - 1)
-    return mul(_pow_2k(x250, 2), x)           # x^(2^252 - 3)
+    ref10 addition chain (251 squarings + 11 multiplies).  ``mul`` is
+    the field multiply (the decompress kernel's plain version passes
+    K1's plain version)."""
+    x2 = mul(mul(x, x), x)                    # x^(2^2 - 1)
+    x4 = mul(_pow_2k(x2, 2, mul), x2)         # x^(2^4 - 1)
+    x5 = mul(mul(x4, x4), x)                  # x^(2^5 - 1)
+    x10 = mul(_pow_2k(x5, 5, mul), x5)        # x^(2^10 - 1)
+    x20 = mul(_pow_2k(x10, 10, mul), x10)     # x^(2^20 - 1)
+    x40 = mul(_pow_2k(x20, 20, mul), x20)     # x^(2^40 - 1)
+    x50 = mul(_pow_2k(x40, 10, mul), x10)     # x^(2^50 - 1)
+    x100 = mul(_pow_2k(x50, 50, mul), x50)    # x^(2^100 - 1)
+    x200 = mul(_pow_2k(x100, 100, mul), x100)  # x^(2^200 - 1)
+    x250 = mul(_pow_2k(x200, 50, mul), x50)   # x^(2^250 - 1)
+    return mul(_pow_2k(x250, 2, mul), x)      # x^(2^252 - 3)

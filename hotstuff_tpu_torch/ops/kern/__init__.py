@@ -1,12 +1,15 @@
 """The hand-written CUDA kernels of the verify hot path, and their routing.
 
-Four kernels, each in ``csrc/`` with a Python wrapper and a plain
+Seven kernels, each in ``csrc/`` with a Python wrapper and a plain
 PyTorch version of the same function beside it:
 
   probe             x + 1, the toolchain and launch check (probe.py)
   field_mul         K1, a * b mod 2^255 - 19 on weak limbs (field_mul.py)
   scalar_mont_mul   K2, the mod-L Montgomery product (scalar_mont.py)
   msm_window_accum  K3, the Straus MSM window sums (msm_accum.py)
+  point_ladder      K1 redesigned: whole point chains in one launch each
+  decompress          (point_chain.py): the ladder, comb and Horner loops,
+  point_multiples     x-recovery, and the 16-entry multiple tables
 
 Routing follows the tensors and nothing else: a CUDA tensor always goes
 through the kernel, a CPU tensor always through the plain version.
@@ -21,7 +24,8 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = {"probe": 0, "field_mul": 0, "scalar_mont_mul": 0,
-            "msm_window_accum": 0}
+            "msm_window_accum": 0, "point_ladder": 0, "decompress": 0,
+            "point_multiples": 0}
 
 
 def reset_launches() -> None:

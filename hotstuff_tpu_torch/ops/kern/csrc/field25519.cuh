@@ -1,5 +1,6 @@
 // GF(2^255 - 19) limb arithmetic shared by the field-multiply kernel
-// (field_mul.cu) and the MSM window accumulator (msm_accum.cu).
+// (field_mul.cu), the MSM window accumulator (msm_accum.cu) and the
+// point-chain kernels (point_chain.cu).
 //
 // Layout: one warp holds one field element, lane i holding limb i of the
 // (..., 32) int32 radix-2^8 weak form (every limb < 2^9).  Every function
@@ -42,6 +43,11 @@ __device__ __forceinline__ int f_add(int a, int b, int lane) {
 
 __device__ __forceinline__ int f_sub(int a, int b, int lane) {
   return carry_step(carry_step(a + sub_bias(lane) - b, lane), lane);
+}
+
+// The reference's neg: sub(0, a).
+__device__ __forceinline__ int f_neg(int a, int lane) {
+  return f_sub(0, a, lane);
 }
 
 // a * b mod p: lane j accumulates coefficient j (pairs k <= j) and
@@ -97,6 +103,28 @@ __device__ __forceinline__ Pt add_cached(const Pt& p, const Pt& q, int lane) {
   r.c[1] = f_mul(g, h, lane);
   r.c[2] = f_mul(f, g, lane);
   r.c[3] = f_mul(e, h, lane);
+  return r;
+}
+
+// Doubling (dbl-2008-hwcd, a = -1), op for op the reference's dbl_t:
+// 4 squarings and 4 multiplies.  With with_t false the T multiply is
+// skipped and T is left 0, which is legal only when a doubling, which
+// never reads T, comes next.
+__device__ __forceinline__ Pt dbl(const Pt& p, bool with_t, int lane) {
+  int a = f_mul(p.c[0], p.c[0], lane);
+  int b = f_mul(p.c[1], p.c[1], lane);
+  int zz = f_mul(p.c[2], p.c[2], lane);
+  int c = f_add(zz, zz, lane);
+  int s = f_add(p.c[0], p.c[1], lane);
+  int e = f_sub(f_sub(f_mul(s, s, lane), a, lane), b, lane);  // 2*X1*Y1
+  int g = f_sub(b, a, lane);
+  int f = f_sub(g, c, lane);
+  int h = f_neg(f_add(a, b, lane), lane);
+  Pt r;
+  r.c[0] = f_mul(e, f, lane);
+  r.c[1] = f_mul(g, h, lane);
+  r.c[2] = f_mul(f, g, lane);
+  r.c[3] = with_t ? f_mul(e, h, lane) : 0;
   return r;
 }
 

@@ -1,0 +1,289 @@
+// The redesigned K1: field multiplies inside fused point chains.
+//
+// Replaces hotstuff_tpu/ops/kern/field_mul.py field_mul (Pallas body
+// _field_mul_kernel) on the verify path.  On the TPU that kernel is one
+// multiply inside a jitted program whose loops are lax.scans
+// (hotstuff_tpu/ops/ed25519.py: the per-signature ladder :518/:548, the
+// comb :530/:558, Horner :738, decompress_t :152).  Run from eager
+// PyTorch, one launch per multiply cost ~3,000 launches per request and
+// ten times as many glue kernels around them.  Here each loop is one
+// launch that keeps the point in registers from the first step to the
+// last:
+//
+//   point_ladder     acc <- [2^ndbl] acc + table[digit], S steps from the
+//                    identity: the per-signature ladder (per-row 16-entry
+//                    table, ndbl 4), both combs (the shared (32, 256)
+//                    table, one table per step, ndbl 0) and Horner (one
+//                    cached window sum per step, ndbl 4);
+//   decompress       the whole of ed25519.decompress_t (x-recovery: the
+//                    pow_p58 chain, the two equality tests, the sqrt(-1)
+//                    fix-up, the sign flip);
+//   point_multiples  the 16-entry table 0P..15P, extended (msm_table,
+//                    feeding K3) or cached (the ladder's table of -A).
+//
+// Every field operation is the shared field25519.cuh function with the
+// reference's op order and carry schedule, so the limbs equal the
+// reference's limb for limb.
+//
+// Layout: one warp per element (one row), lane i holding limb i of every
+// coordinate, as in K1 and K3.  The alternative, one thread per element
+// with all 32 limbs of each operand in registers, needs no shuffles but
+// ~130 registers for a multiply alone and four coordinates plus
+// temporaries across a point formula, which would spill; the warp layout
+// keeps every chain in registers without spills and reuses the multiply
+// already held exact on the card.  ptxas (CUDA 12.8, sm_90a; the report
+// is in build.log): point_ladder 91 registers, decompress 143,
+// point_multiples 120, no spills, no stack.  What bounds it: a multiply is ~68 warp shuffles for ~36
+// int32 instructions per lane, and an SM issues one shuffle per clock
+// against 64 int32 operations, so these kernels are bound by shuffle
+// issue and by the latency of one warp's dependent chain (Horner at
+// batch 1: ~2,400 multiplies in a row), not by the int32 rate or by
+// bytes (the tables, 4 MB shared and 8 MB per-row at B = 1024, stay in
+// device memory and L2; each step reads one 512-byte cached point per
+// row).  Splitting a formula's four independent multiplies across warps,
+// or the thread-per-element layout at large batches, is later work.
+#include <cuda_runtime.h>
+
+#include "field25519.cuh"
+
+namespace {
+
+constexpr int kPt = 4 * 32;       // int32 values per point
+constexpr int kEntries = 16;      // point_multiples: 0P .. 15P
+constexpr int kThreads = 64;      // two warps (two rows) per block
+
+// d = -121665/121666 and sqrt(-1) mod p, canonical little-endian bytes.
+__constant__ int kD[32] = {
+    163, 120, 89, 19, 202, 77, 235, 117, 171, 216, 65, 65, 77, 10, 112, 0,
+    152, 232, 121, 119, 121, 64, 199, 140, 115, 254, 111, 43, 238, 108, 3, 82};
+__constant__ int kSqrtM1[32] = {
+    176, 160, 14, 74, 39, 27, 238, 196, 120, 228, 47, 173, 6, 24, 67, 47,
+    167, 215, 251, 61, 153, 0, 77, 43, 11, 223, 193, 79, 128, 36, 131, 43};
+
+__device__ __forceinline__ hk::Pt load_pt(const int* base, int lane) {
+  hk::Pt p;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) p.c[c] = base[c * 32 + lane];
+  return p;
+}
+
+__device__ __forceinline__ void store_pt(int* base, const hk::Pt& p,
+                                         int lane) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) base[c * 32 + lane] = p.c[c];
+}
+
+__device__ __forceinline__ hk::Pt identity(int lane) {
+  int one = lane == 0 ? 1 : 0;
+  return hk::Pt{{0, one, one, 0}};
+}
+
+__device__ __forceinline__ int f_sqr(int a, int lane) {
+  return hk::f_mul(a, a, lane);
+}
+
+// Loops around point formulas and multiplies stay rolled (unroll 1): an
+// unrolled copy of each would multiply the code, not the speed.
+__device__ __forceinline__ int pow_2k(int x, int k, int lane) {
+#pragma unroll 1
+  for (int i = 0; i < k; ++i) x = f_sqr(x, lane);
+  return x;
+}
+
+// x^((p-5)/8) = x^(2^252 - 3) by the reference's addition chain
+// (field25519.pow_p58): 251 squarings and 11 multiplies.
+__device__ int pow_p58(int x, int lane) {
+  int x2 = hk::f_mul(f_sqr(x, lane), x, lane);
+  int x4 = hk::f_mul(pow_2k(x2, 2, lane), x2, lane);
+  int x5 = hk::f_mul(f_sqr(x4, lane), x, lane);
+  int x10 = hk::f_mul(pow_2k(x5, 5, lane), x5, lane);
+  int x20 = hk::f_mul(pow_2k(x10, 10, lane), x10, lane);
+  int x40 = hk::f_mul(pow_2k(x20, 20, lane), x20, lane);
+  int x50 = hk::f_mul(pow_2k(x40, 10, lane), x10, lane);
+  int x100 = hk::f_mul(pow_2k(x50, 50, lane), x50, lane);
+  int x200 = hk::f_mul(pow_2k(x100, 100, lane), x100, lane);
+  int x250 = hk::f_mul(pow_2k(x200, 50, lane), x50, lane);
+  return hk::f_mul(pow_2k(x250, 2, lane), x, lane);
+}
+
+// The reference's sequential carry: a lane-serial ripple in which every
+// lane follows the (warp-uniform) carry and lane i keeps byte i.
+// Returns the carry out of limb 31.
+__device__ __forceinline__ int ripple(int& x, int lane) {
+  int carry = 0, out = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    int t = __shfl_sync(hk::kFullMask, x, i) + carry;
+    if (lane == i) out = t & 0xFF;
+    carry = t >> 8;
+  }
+  x = out;
+  return carry;
+}
+
+// x - p if x >= p, else x (x canonical bytes below 2^256): the
+// reference's borrow chain.
+__device__ __forceinline__ int cond_sub_p(int x, int lane) {
+  int borrow = 0, out = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    int p_digit = i == 0 ? 237 : (i == 31 ? 127 : 255);
+    int d = __shfl_sync(hk::kFullMask, x, i) - p_digit - borrow;
+    borrow = d < 0 ? 1 : 0;
+    if (lane == i) out = d + (borrow << 8);
+  }
+  return borrow > 0 ? x : out;  // a borrow out means x < p
+}
+
+// Weak element -> canonical bytes, value in [0, p): field25519.canonical.
+__device__ int canonical(int x, int lane) {
+  int carry = ripple(x, lane);
+  if (lane == 0) x += 38 * carry;
+  carry = ripple(x, lane);
+  if (lane == 0) x += 38 * carry;
+  return cond_sub_p(cond_sub_p(x, lane), lane);
+}
+
+// One warp per row; rows * 32 threads in all.
+__device__ __forceinline__ bool warp_row(long long rows, long long* row,
+                                         int* lane) {
+  *row = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >>
+         5;
+  *lane = threadIdx.x & 31;
+  return *row < rows;  // the whole warp leaves together
+}
+
+__global__ void point_ladder_kernel(const int* __restrict__ table,
+                                    const int* __restrict__ digits,
+                                    int* __restrict__ out, long long rows,
+                                    int steps, int k, int per_row,
+                                    int per_step, int ndbl) {
+  long long row;
+  int lane;
+  if (!warp_row(rows, &row, &lane)) return;
+  const long long table_stride = static_cast<long long>(
+      per_step ? steps : 1) * k * kPt;
+  const int* trow = table + (per_row ? row : 0) * table_stride;
+  const int* drow = digits + row * steps;
+  hk::Pt acc = identity(lane);
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    if (ndbl > 0) {
+#pragma unroll 1
+      for (int i = 1; i < ndbl; ++i) acc = hk::dbl(acc, false, lane);
+      acc = hk::dbl(acc, true, lane);  // the addition below reads T
+    }
+    // Digits are in [0, k) by construction; clamping keeps a bad one
+    // inside the table.
+    int d = min(max(drow[s], 0), k - 1);
+    const int* e = trow + (static_cast<long long>(per_step ? s : 0) * k + d)
+                              * kPt;
+    acc = hk::add_cached(acc, load_pt(e, lane), lane);
+  }
+  store_pt(out + row * kPt, acc, lane);
+}
+
+__global__ void decompress_kernel(const int* __restrict__ y_limbs,
+                                  const int* __restrict__ sign_bits,
+                                  int* __restrict__ out,
+                                  unsigned char* __restrict__ ok_out,
+                                  long long rows) {
+  long long row;
+  int lane;
+  if (!warp_row(rows, &row, &lane)) return;
+  const int y = y_limbs[row * 32 + lane];
+  const int sign = sign_bits[row];
+  const int one = lane == 0 ? 1 : 0;
+  int y2 = f_sqr(y, lane);
+  int u = hk::f_sub(y2, one, lane);
+  int v = hk::f_add(hk::f_mul(kD[lane], y2, lane), one, lane);
+  int v3 = hk::f_mul(f_sqr(v, lane), v, lane);
+  int v7 = hk::f_mul(f_sqr(v3, lane), v, lane);
+  int x = hk::f_mul(hk::f_mul(u, v3, lane),
+                    pow_p58(hk::f_mul(u, v7, lane), lane), lane);
+  int vxx = canonical(hk::f_mul(v, f_sqr(x, lane), lane), lane);
+  bool ok_direct = __all_sync(hk::kFullMask, vxx == canonical(u, lane));
+  bool ok_twist = __all_sync(hk::kFullMask,
+                             vxx == canonical(hk::f_neg(u, lane), lane));
+  int x_twist = hk::f_mul(x, kSqrtM1[lane], lane);
+  if (ok_twist) x = x_twist;
+  bool ok = ok_direct || ok_twist;
+  // Sign adjustment; x == 0 with sign 1 is invalid.
+  int xc = canonical(x, lane);
+  bool x_zero = __all_sync(hk::kFullMask, xc == 0);
+  int parity = __shfl_sync(hk::kFullMask, xc, 0) & 1;
+  if (parity != sign && !x_zero) x = hk::f_neg(x, lane);
+  ok = ok && !(x_zero && sign == 1);
+  hk::Pt p{{x, y, one, hk::f_mul(x, y, lane)}};
+  store_pt(out + row * kPt, p, lane);
+  if (lane == 0) ok_out[row] = ok ? 1 : 0;
+}
+
+__global__ void point_multiples_kernel(const int* __restrict__ pts,
+                                       int* __restrict__ out,
+                                       long long rows, int cached,
+                                       int negate) {
+  long long row;
+  int lane;
+  if (!warp_row(rows, &row, &lane)) return;
+  hk::Pt p = load_pt(pts + row * kPt, lane);
+  if (negate) {
+    p.c[0] = hk::f_neg(p.c[0], lane);
+    p.c[3] = hk::f_neg(p.c[3], lane);
+  }
+  const hk::Pt pc = hk::to_cached(p, lane);
+  int* o = out + row * kEntries * kPt;
+  hk::Pt e = identity(lane);
+#pragma unroll 1
+  for (int i = 0; i < kEntries; ++i) {
+    if (i == 1) {
+      e = p;
+    } else if (i > 1) {
+      e = hk::add_cached(e, pc, lane);
+    }
+    store_pt(o + i * kPt, cached ? hk::to_cached(e, lane) : e, lane);
+  }
+}
+
+unsigned blocks_for(long long rows) {
+  return static_cast<unsigned>((rows * 32 + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+// table (Bt, J, k, 4, 32) with Bt = rows if per_row else 1 and J = steps
+// if per_step else 1; digits (rows, steps) in [0, k); out (rows, 4, 32).
+extern "C" int hk_point_ladder(const int* table, const int* digits, int* out,
+                               long long rows, int steps, int k, int per_row,
+                               int per_step, int ndbl, void* stream) {
+  if (rows > 0) {
+    point_ladder_kernel<<<blocks_for(rows), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        table, digits, out, rows, steps, k, per_row, per_step, ndbl);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y_limbs (rows, 32), sign_bits (rows,); out (rows, 4, 32), ok (rows,).
+extern "C" int hk_decompress(const int* y_limbs, const int* sign_bits,
+                             int* out, unsigned char* ok, long long rows,
+                             void* stream) {
+  if (rows > 0) {
+    decompress_kernel<<<blocks_for(rows), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        y_limbs, sign_bits, out, ok, rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pts (rows, 4, 32) extended; out (rows, 16, 4, 32), cached form when
+// cached != 0, built from -P when negate != 0.
+extern "C" int hk_point_multiples(const int* pts, int* out, long long rows,
+                                  int cached, int negate, void* stream) {
+  if (rows > 0) {
+    point_multiples_kernel<<<blocks_for(rows), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        pts, out, rows, cached, negate);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -21,6 +21,7 @@ from hotstuff_tpu_torch.ops import ed25519 as E
 from hotstuff_tpu_torch.ops import kern
 from hotstuff_tpu_torch.ops.kern import field_mul as K1
 from hotstuff_tpu_torch.ops.kern import msm_accum as K3
+from hotstuff_tpu_torch.ops.kern import point_chain as PC
 from hotstuff_tpu_torch.ops.kern import probe as K0
 from hotstuff_tpu_torch.ops.kern import scalar_mont as K2
 from hotstuff_tpu_torch.utils.intmath import L
@@ -107,3 +108,79 @@ def test_verify_programs_on_card_match_reference(card):
     want = [ref.verify(pk, m, s) for m, pk, s in zip(msgs, pks, sigs)]
     assert D.verify_batch(msgs, pks, sigs, device=card).tolist() == want
     assert D.verify_batch_rlc(msgs, pks, sigs, device=card).tolist() == want
+
+
+def _multiples(rows, rng):
+    """(rows, 4, 32) ext points on the CPU: the base point's multiples 1B
+    .. 15B in a random order (inputs made without the kernels)."""
+    mult = PC.point_multiples_plain(E.basepoint_ext().expand(1, 4, 32),
+                                    cached=False, negate=False)[0, 1:]
+    return mult[torch.from_numpy(rng.integers(0, 15, rows))].contiguous()
+
+
+@pytest.mark.parametrize("rows", [1, 7, 256])
+def test_decompress_equals_plain_on_card(card, rows):
+    rng = np.random.default_rng(rows)
+    enc = rng.integers(0, 256, (rows, 32)).astype(np.uint8)
+    keys = [ref.generate_keypair(bytes([5, i]) * 16)[1]
+            for i in range(min(rows, 4))]
+    for i, pk in enumerate(keys):
+        enc[i] = np.frombuffer(pk, np.uint8)
+    if rows > 5:
+        enc[5] = np.frombuffer((1 | (1 << 255)).to_bytes(32, "little"),
+                               np.uint8)               # x = 0 with sign 1
+    y, s = E.split_y_sign(torch.from_numpy(enc).to(card))
+    pts, ok = _launched("decompress", lambda: PC.decompress(y, s))
+    want_pts, want_ok = PC.decompress_plain(y, s)
+    assert torch.equal(ok, want_ok) and bool(ok[:len(keys)].all())
+    assert torch.equal(pts, want_pts)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 256])
+def test_point_multiples_equals_plain_on_card(card, rows):
+    pts = _multiples(rows, np.random.default_rng(rows)).to(card)
+    for cached, negate in ((False, False), (True, True), (True, False)):
+        got = _launched("point_multiples",
+                        lambda: PC.point_multiples(pts, cached, negate))
+        assert torch.equal(
+            got, PC.point_multiples_plain(pts, cached, negate))
+
+
+@pytest.mark.parametrize("per_row,per_step", [(False, False), (True, False),
+                                              (False, True), (True, True)])
+@pytest.mark.parametrize("rows", [1, 7, 256])
+def test_point_ladder_equals_plain_on_card(card, rows, per_row, per_step):
+    rng = np.random.default_rng(rows)
+    steps = 6
+    base = PC.point_multiples_plain(_multiples(rows, rng), cached=True,
+                                    negate=False)        # (rows, 16, 4, 32)
+    table = torch.stack([base.roll(s, dims=0) for s in range(steps)], dim=1)
+    table = table[:, :steps if per_step else 1]
+    table = (table if per_row else table[:1]).contiguous().to(card)
+    digits = torch.from_numpy(
+        rng.integers(0, 16, (rows, steps)).astype(np.int32)).to(card)
+    for ndbl in (4, 0):
+        got = _launched("point_ladder",
+                        lambda: PC.point_ladder(table, digits, ndbl))
+        assert torch.equal(got, PC.point_ladder_plain(table, digits, ndbl))
+
+
+def test_point_chain_wrappers_reject_bad_inputs_on_card(card):
+    pts = _multiples(2, np.random.default_rng(0)).to(card)
+    table = PC.point_multiples_plain(pts, True, False).unsqueeze(1)
+    digits = torch.zeros((2, 3), dtype=torch.int32, device=card)
+    y = torch.zeros((2, 32), dtype=torch.int32, device=card)
+    sign = torch.zeros((2,), dtype=torch.int32, device=card)
+    before = dict(kern.LAUNCHES)
+    bad = [lambda: PC.point_ladder(table, digits.long(), 4),
+           lambda: PC.point_ladder(table, digits[:1], 4),
+           lambda: PC.point_ladder(table.transpose(0, 1), digits, 4),
+           lambda: PC.decompress(y.long(), sign),
+           lambda: PC.decompress(y[:, :16].contiguous(), sign),
+           lambda: PC.point_multiples(pts[:, :3].contiguous()),
+           lambda: PC.point_multiples(pts.float())]
+    for call in bad:
+        with pytest.raises((TypeError, ValueError)):
+            call()
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES == before
