@@ -7,12 +7,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ops/kern/csrc with nvcc;
   3. launch the probe kernel K0 and check x + 1;
-  4. run K1, K2, K3 and the three point-chain kernels (point_ladder as
-     the per-signature ladder, the comb and Horner; decompress;
-     point_multiples) at the main path's shapes beside their plain
-     PyTorch versions on the card, require exact equality, and time both
-     (the kernel also as launches replayed from a CUDA graph, which
-     leaves out the host's overhead between calls);
+  4. run K1, K2, K3 (at the bulk batch's 2048 MSM points and the QC's
+     256), the three point-chain kernels (point_ladder as the
+     per-signature ladder, the comb and Horner; decompress;
+     point_multiples) and the two scalar_rlc kernels (rlc_scalars at
+     1024 rows, rlc_reduce at batch 1) at the main path's shapes beside
+     their plain PyTorch versions on the card, require exact equality,
+     and time both (the kernel also as launches replayed from a CUDA
+     graph, which leaves out the host's overhead between calls);
   5. serve the main path through the port's verify sidecar on the card:
      QC verifies of 67 votes from a 100-key committee (the RLC program),
      a QC with a forged vote and a non-canonical S (RLC with bisection),
@@ -20,12 +22,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
      requests of 1024 signatures (RLC at 2048 MSM points), OP_STATS.
      Every mask must equal the host reference row for row; the probe
      must have been launched at the sidecar's boot and every other
-     kernel by the requests (launches are counted per grid, so K3
-     counts log2(B));
+     kernel of the path by the requests (launches are counted per grid:
+     K3 counts 1 up to 64 points, 2 above); K2 itself is off the path,
+     its work done inside rlc_scalars and rlc_reduce;
   6. profile a QC and a bulk batch through the RLC program, and the
      bulk batch through the per-signature program at 1024 rows: host
      wall time split into the program's pack, dispatch and fetch
-     stages, and the card's busy time from torch.profiler.
+     stages, the card's busy time from torch.profiler, and the
+     operators each function dispatches (the RLC calls must dispatch
+     none from scalar25519, whose work the scalar_rlc kernels do).
 
 The line before the last is a JSON object listing the kernels with
 their launches on the main path (over the requests, the probe's at
@@ -69,6 +74,15 @@ OPS_DBL_NO_T = OPS_DBL - OPS_FIELD_MUL
 OPS_TREE_NODE = OPS_TO_CACHED + OPS_ADD_CACHED
 OPS_MONT_ROW = (32 * 32 + 528 + 32 * 32                # T, m, m*L
                 + 3 * (64 + 32 + 64) + 4 * 32)         # ripples, subtract
+OPS_COND_SUB = 4 * 32
+# rlc_scalars: two mul_mod_l (four Montgomery products), two lifts
+# (multiply-add and a 32-byte ripple each) and two nibble splits.
+OPS_RLC_SCALARS_ROW = (4 * OPS_MONT_ROW + 2 * (32 + 3 * 32)
+                       + 2 * 2 * 32)
+# rlc_reduce: the 36-byte ripple, one Montgomery product, mod_small's
+# four conditional subtracts, add_mod_l's add, ripple and subtract.
+OPS_RLC_REDUCE_ROW = (3 * 36 + OPS_MONT_ROW + 4 * OPS_COND_SUB
+                      + 32 + 3 * 32 + OPS_COND_SUB)
 # canonical: two 32-limb ripples (add, mask, shift), the x38 adds, two
 # borrow chains (subtract twice, compare, shift-add) and the select.
 OPS_CANONICAL = 2 * 3 * 32 + 2 + 2 * 4 * 32 + 32
@@ -78,6 +92,12 @@ OPS_DECOMPRESS_ROW = (275 * OPS_FIELD_MUL + OPS_FIELD_ADD
                       + 3 * OPS_FIELD_SUB + 4 * OPS_CANONICAL)
 # point_multiples: to_cached(P) and 14 additions (extended output).
 OPS_MULTIPLES_ROW = OPS_TO_CACHED + 14 * OPS_ADD_CACHED
+
+
+# The warp-per-element kernels exchange limbs by warp shuffles, and an SM
+# issues one shuffle (32 lanes) per clock: a second bound that the int32
+# one does not count.
+PEAK_WARP_SHUFFLES_PER_S = 132 * 1.98e9
 
 
 def ops_ladder_row(steps: int, ndbl: int) -> int:
@@ -94,6 +114,33 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_shuffles() -> dict:
+    """Static count of warp-shuffle (SHFL) instructions in each kernel's
+    machine code, from cuobjdump on the built library; empty when the
+    toolkit has no cuobjdump."""
+    import re
+
+    from hotstuff_tpu_torch.ops.kern import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    lib = build.BUILD_ROOT / build.source_hash() / build.LIB_NAME
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    counts: dict = {}
+    name = None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            found = re.search(r"\d+([a-z_]+_kernel)", line)
+            name = found.group(1) if found else None
+            if name:
+                counts[name] = 0
+        elif name and "SHFL" in line:
+            counts[name] += 1
+    return counts
 
 
 def time_ms(fn, iters: int) -> float:
@@ -145,7 +192,7 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
-def kernel_phase(dev, rng):
+def kernel_phase(dev, rng, shuffles):
     """Phases 3 and 4: each kernel beside its plain version, exact."""
     import numpy as np
     import torch
@@ -157,6 +204,7 @@ def kernel_phase(dev, rng):
     from hotstuff_tpu_torch.ops.kern import point_chain as PC
     from hotstuff_tpu_torch.ops.kern import probe as K0
     from hotstuff_tpu_torch.ops.kern import scalar_mont as K2
+    from hotstuff_tpu_torch.ops.kern import scalar_rlc as SR
     from hotstuff_tpu_torch.utils.intmath import L
 
     rows = []
@@ -229,24 +277,60 @@ def kernel_phase(dev, rng):
            K2.scalar_mont_mul, K2.scalar_mont_mul_plain, (sa, sb),
            3 * n * 32 * 4, n * OPS_MONT_ROW, 200)
 
-    # K3 at the bulk path's 2048 MSM points: a table of real curve points
-    # (the base point's multiples, made on the card) and random digits,
-    # with zero-digit rows as bucket padding makes them.
-    b = 2048
+    # rlc_scalars (K2 redesigned) at the bulk path's 1024 rows: random
+    # coefficients, challenges and S, with an excluded (all-zero z) row
+    # and the boundary values; rlc_reduce at the RLC finish's batch 1, on
+    # the limb sum of rlc_scalars' u.
+    n = 1024
+    rand = lambda bound: [  # noqa: E731
+        int.from_bytes(rng.bytes(32), "little") % bound for _ in range(n)]
+    zv, kv, sv = rand(L), rand(L), rand(L)
+    zv[0], zv[1], kv[1], sv[2] = 0, 1, L - 1, 2**256 - 1
+    z, k, s = (torch.from_numpy(to_bytes(v)).to(dev) for v in (zv, kv, sv))
+    record("rlc_scalars", "hotstuff_tpu_torch/ops/kern/csrc/scalar_rlc.cu",
+           "hotstuff_tpu/ops/kern/scalar_mont.py:95", f"({n}, 32) x 3",
+           SR.rlc_scalars, SR.rlc_scalars_plain, (z, k, s),
+           n * (3 * 32 + 2 * 64 + 32) * 4, n * OPS_RLC_SCALARS_ROW, 200)
+    u_sum = torch.sum(SR.rlc_scalars_plain(z, k, s)[1], dim=0,
+                      dtype=torch.int32)
+    record("rlc_reduce", "hotstuff_tpu_torch/ops/kern/csrc/scalar_rlc.cu",
+           "hotstuff_tpu/ops/kern/scalar_mont.py:95", "(32,)",
+           SR.rlc_reduce, SR.rlc_reduce_plain, (u_sum,), 2 * 32 * 4,
+           OPS_RLC_REDUCE_ROW, 200)
+
+    # K3 at the bulk path's 2048 MSM points and at the QC's 256: a table
+    # of real curve points (the base point's multiples, made on the card)
+    # and random digits, with zero-digit rows as bucket padding makes
+    # them.
     base = E.basepoint_ext(dev)
-    steps = torch.from_numpy(
-        rng.integers(0, 16, (b, 64)).astype(np.int32)).to(dev)
-    pts = E.msm_table(base.expand(1, 4, 32))[0, 1:].repeat(b // 15 + 1,
-                                                          1, 1)[:b]
-    table = E.msm_table(pts.contiguous()).contiguous()
-    digits = steps.clone()
-    digits[b - 64:] = 0
+    k3_args = []
+    for b in (2048, 256):
+        steps = torch.from_numpy(
+            rng.integers(0, 16, (b, 64)).astype(np.int32)).to(dev)
+        pts = E.msm_table(base.expand(1, 4, 32))[0, 1:].repeat(
+            b // 15 + 1, 1, 1)[:b]
+        table = E.msm_table(pts.contiguous()).contiguous()
+        digits = steps.clone()
+        digits[b - b // 32:] = 0
+        k3_args.append((f"table ({b}, 16, 4, 32)", K3.msm_window_accum,
+                        K3.msm_window_accum_plain, (table, digits),
+                        table.numel() * 4 + digits.numel() * 4 + 64 * 128 * 4,
+                        64 * (b - 1) * OPS_TREE_NODE, 20))
     record("msm_window_accum", "hotstuff_tpu_torch/ops/kern/csrc/msm_accum.cu",
-           "hotstuff_tpu/ops/kern/msm_accum.py:75",
-           f"table ({b}, 16, 4, 32)", K3.msm_window_accum,
-           K3.msm_window_accum_plain, (table, digits),
-           table.numel() * 4 + digits.numel() * 4 + 64 * 128 * 4,
-           64 * (b - 1) * OPS_TREE_NODE, 10)
+           "hotstuff_tpu/ops/kern/msm_accum.py:75", *k3_args[0])
+    rows[-1].update({f"qc256_{k}": v for k, v in
+                     measure("msm_window_accum", *k3_args[1]).items()})
+    # The shuffle bound: 64 (B - 1) tree nodes, each the fold kernel's
+    # static shuffle count (one copy of the node: its merge loop is not
+    # unrolled, and its leaf loop holds no shuffle).
+    per_node = shuffles.get("msm_fold_kernel")
+    for prefix, b in (("", 2048), ("qc256_", 256)):
+        rows[-1][f"{prefix}shfl_bound_ms"] = (
+            None if per_node is None else
+            64 * (b - 1) * per_node / PEAK_WARP_SHUFFLES_PER_S * 1e3)
+    print(f"msm_window_accum: {per_node} warp shuffles per tree node; "
+          f"shuffle bound {rows[-1]['shfl_bound_ms']} ms at 2048 points, "
+          f"{rows[-1]['qc256_shfl_bound_ms']} ms at 256", flush=True)
 
     # The point-chain kernels (K1 redesigned), at the shapes the verify
     # programs give them: a 1024-signature batch decompresses 2048
@@ -436,11 +520,20 @@ def sidecar_phase(dev, reqs, want):
     if not boot["probe"]:
         fail("the sidecar's boot did not launch the probe kernel")
     for name, count in launches.items():
-        if name != "probe" and count == 0:
+        if name not in OFF_PATH and count == 0:
             fail(f"kernel {name} was not launched by the requests")
+    if launches["scalar_mont_mul"]:
+        fail("the requests launched K2 (scalar_mont_mul), whose work on "
+             "the RLC path belongs to rlc_scalars and rlc_reduce")
     print(f"kernel launches at boot: {boot}; over the requests: "
           f"{launches}", flush=True)
     return boot, launches, per_kind
+
+
+# Kernels the requests do not launch: the probe runs at the sidecar's
+# boot, and K2's work on the RLC path runs inside rlc_scalars and
+# rlc_reduce (K2 stays for scalar25519's other callers).
+OFF_PATH = ("probe", "scalar_mont_mul")
 
 
 def ops_by_caller(run) -> dict:
@@ -535,9 +628,14 @@ def profile_phase(dev, reqs, want) -> None:
             print(f"  device {us / 1e3:.3f} ms in {n} events: {name[:90]}",
                   flush=True)
         ops = ops_by_caller(lambda: pack(msgs, pks, sigs, device=dev)()())
-        top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+        top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
         print(f"  operators dispatched: {sum(ops.values())}; by caller: "
               + ", ".join(f"{k} {n}" for k, n in top_ops), flush=True)
+        scalar_ops = {k: n for k, n in ops.items()
+                      if k.startswith("scalar25519.py")}
+        if pack is eddsa.verify_batch_rlc_pack and scalar_ops:
+            fail(f"profile {label}: the RLC program dispatched scalar25519 "
+                 f"operators {scalar_ops}")
 
 
 def main() -> int:
@@ -579,8 +677,12 @@ def main() -> int:
                 or "entry function" in line):
             print("  ptxas:", line.strip(), flush=True)
 
+    shuffles = sass_shuffles()
+    print(f"warp shuffles in each kernel's machine code (cuobjdump): "
+          f"{shuffles or 'not measured'}", flush=True)
+
     rng = np.random.default_rng(20261017)
-    rows = kernel_phase(dev, rng)
+    rows = kernel_phase(dev, rng, shuffles)
 
     from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
 

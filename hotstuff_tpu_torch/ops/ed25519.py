@@ -13,10 +13,12 @@ The check [S]B - [k]A == R splits into a fixed-base comb for [S]B (32
 additions against a host-built table) and a 4-bit windowed ladder for
 [k](-A) (64 steps of four doublings and one addition).  The RLC check
 collapses a batch to one multi-scalar multiply whose window sums run in
-kernel K3 (ops/kern/msm_accum).  Each whole loop (ladder, comb, Horner,
-decompression, the 16-entry tables) is one launch of a point-chain
-kernel (ops/kern/point_chain); the formulas below are their plain
-versions' building blocks and serve the few operations left outside.
+kernel K3 (ops/kern/msm_accum), and its scalar work mod L in the two
+scalar_rlc kernels (ops/kern/scalar_rlc).  Each whole loop (ladder,
+comb, Horner, decompression, the 16-entry tables) is one launch of a
+point-chain kernel (ops/kern/point_chain); the formulas below are their
+plain versions' building blocks and serve the few operations left
+outside.
 """
 
 from __future__ import annotations
@@ -25,10 +27,10 @@ import numpy as np
 import torch
 
 from . import field25519 as F
-from . import scalar25519 as S
 from ..utils.intmath import BX, BY, D, L, P, SQRT_M1, next_pow2
 from .kern import point_chain as PC
 from .kern.msm_accum import msm_window_accum
+from .kern.scalar_rlc import rlc_reduce, rlc_scalars
 
 K2D = (2 * D) % P
 
@@ -409,32 +411,26 @@ def rlc_partials(packed: torch.Tensor, z: torch.Tensor):
     R failed decompression)."""
     ay, a_sign = split_y_sign(packed[..., 0:32])
     ry, r_sign = split_y_sign(packed[..., 32:64])
-    s_l = packed[..., 64:96].to(torch.int32)
-    k_l = packed[..., 96:128].to(torch.int32)
-    z_l = z.to(torch.int32)
+    s_l = packed[..., 64:96].to(torch.int32).contiguous()
+    k_l = packed[..., 96:128].to(torch.int32).contiguous()
+    z_l = z.to(torch.int32).contiguous()
 
     present = torch.any(z_l != 0, dim=-1)
-    # A points first, R points second, matching the digit concat below.
+    # A points first, R points second, matching the digit order of
+    # rlc_scalars.
     pts, ok = decompress(torch.cat([ay, ry], dim=0),
                          torch.cat([a_sign, r_sign], dim=0))
     present2 = torch.cat([present, present], dim=0)
     bad = torch.sum(~ok & present2).to(torch.int32)
 
-    w = S.mul_mod_l(z_l, k_l)          # z_i * k_i mod L  (A_i scalars)
-    u = S.mul_mod_l(z_l, s_l)          # z_i * S_i mod L
-
-    # Torsion-exact CRT lift to the full-group exponent 8L: A's scalar to
-    # w' = w (mod L), w' = k (mod 8); R's to z' = z (mod L), z' = 1
-    # (mod 8), so every row's torsion defect enters the sum with the
-    # coefficient the per-signature equation uses (L = 5 mod 8, and 5 is
-    # its own inverse mod 8; excluded rows keep scalar 0).
-    present_i = present.to(torch.int32)
-    t_w = (5 * ((k_l[..., 0] & 7) - (w[..., 0] & 7))) % 8 * present_i
-    t_z = (5 * (1 - (z_l[..., 0] & 7))) % 8 * present_i
-    w_lift = S.add_small_multiple_of_l(w, t_w)
-    z_lift = S.add_small_multiple_of_l(z_l, t_z)
-
-    digits = unpack_nibbles_msb(torch.cat([w_lift, z_lift], dim=0))
+    # w = z k mod L and u = z S mod L, then the torsion-exact CRT lift to
+    # the full-group exponent 8L: A's scalar to w' = w (mod L), w' = k
+    # (mod 8); R's to z' = z (mod L), z' = 1 (mod 8), so every row's
+    # torsion defect enters the sum with the coefficient the
+    # per-signature equation uses (L = 5 mod 8, and 5 is its own inverse
+    # mod 8; excluded rows keep scalar 0).  One launch: digits of
+    # [w'; z'] for the MSM, and u.
+    digits, u = rlc_scalars(z_l, k_l, s_l)
     wsums = msm_window_sums(pts, digits)
     return wsums, torch.sum(u, dim=-2, dtype=torch.int32), bad
 
@@ -444,7 +440,7 @@ def rlc_finish(wsums: torch.Tensor, u_limbsum: torch.Tensor,
     """Combine RLC partials into the () bool verdict: Horner-fold the
     window sums, comb [c]B from the reduced scalar sum, compare
     projectively, and veto on any bad point."""
-    c = S.reduce_limbsum_mod_l(u_limbsum)
+    c = rlc_reduce(u_limbsum)
     msm = msm_horner(wsums)            # sum [w_i]A_i + [z_i]R_i
     cb = comb_mul_base(c)              # [c]B
 

@@ -1,21 +1,25 @@
 """The hand-written CUDA kernels of the verify hot path, and their routing.
 
-Seven kernels, each in ``csrc/`` with a Python wrapper and a plain
+Nine kernels, each in ``csrc/`` with a Python wrapper and a plain
 PyTorch version of the same function beside it:
 
   probe             x + 1, the toolchain and launch check (probe.py)
   field_mul         K1, a * b mod 2^255 - 19 on weak limbs (field_mul.py)
   scalar_mont_mul   K2, the mod-L Montgomery product (scalar_mont.py)
-  msm_window_accum  K3, the Straus MSM window sums (msm_accum.py)
+  msm_window_accum  K3, the Straus MSM window sums, in at most two grids
+                      (msm_accum.py)
   point_ladder      K1 redesigned: whole point chains in one launch each
   decompress          (point_chain.py): the ladder, comb and Horner loops,
   point_multiples     x-recovery, and the 16-entry multiple tables
+  rlc_scalars       K2 redesigned: the RLC program's scalar work mod L
+  rlc_reduce          in one launch each (scalar_rlc.py): the products,
+                      lifts and digits per row; the limb-sum reduction
 
 Routing follows the tensors and nothing else: a CUDA tensor always goes
 through the kernel, a CPU tensor always through the plain version.
 There is no switch and no fallback; a kernel that fails to build or
 launch raises.  ``LAUNCHES`` counts each kernel's grid launches (K3
-launches one grid per tree level; plain-version calls count nothing),
+launches one or two grids; plain-version calls count nothing),
 so a run can show that its main path went through the kernels.
 """
 
@@ -25,7 +29,7 @@ import torch
 
 LAUNCHES = {"probe": 0, "field_mul": 0, "scalar_mont_mul": 0,
             "msm_window_accum": 0, "point_ladder": 0, "decompress": 0,
-            "point_multiples": 0}
+            "point_multiples": 0, "rlc_scalars": 0, "rlc_reduce": 0}
 
 
 def reset_launches() -> None:

@@ -40,10 +40,12 @@ SIGNATURES = {
     "hk_probe": [_P, _P, _I, _P],
     "hk_field_mul": [_P, _P, _P, _LL, _P],
     "hk_scalar_mont_mul": [_P, _P, _P, _LL, _P],
-    "hk_msm_window_accum": [_P, _P, _P, _P, _I, _P],
+    "hk_msm_window_accum": [_P, _P, _P, _P, _I, _I, _P],
     "hk_point_ladder": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     "hk_decompress": [_P, _P, _P, _P, _LL, _P],
     "hk_point_multiples": [_P, _P, _LL, _I, _I, _P],
+    "hk_rlc_scalars": [_P, _P, _P, _P, _P, _LL, _P],
+    "hk_rlc_reduce": [_P, _P, _LL, _P],
 }
 
 _lock = threading.Lock()

@@ -6,6 +6,9 @@ reference's window sums limb for limb: for each of the 64 MSB-first
 nibble windows, select ``table[row, digit]`` per row, then reduce the
 rows by the binary tree of ``ed25519._tree_sum`` (pts[:m] +
 cached(pts[m:]), m halving) with complete additions of 8 multiplies.
+The kernel cuts the tree in at most two grids: one folds each window's
+B points down to ``min(B, PARTIALS)`` partial points, the other reduces
+those to the window sum.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from . import LAUNCHES, build, check_int32, check_launch, on_card, stream_of
 from .field_mul import field_mul_plain
 
 WINDOWS = 64
+PARTIALS = 64   # partial points per window between the kernel's grids
 
 
 def msm_window_accum_plain(table: torch.Tensor,
@@ -58,11 +62,13 @@ def msm_window_accum(table: torch.Tensor,
                          "table entries, with no tree to reduce")
     out = torch.empty((WINDOWS, 4, 32), dtype=torch.int32,
                       device=table.device)
-    scratch = torch.empty((WINDOWS * (b // 2) * 4 * 32,),
-                          dtype=torch.int32, device=table.device)
+    m = min(b, PARTIALS)
+    partials = None if m == b else torch.empty(
+        (WINDOWS, m, 4, 32), dtype=torch.int32, device=table.device)
     check_launch("msm_window_accum", build.load().hk_msm_window_accum(
-        table.data_ptr(), digits.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), b, stream_of(table)))
-    # The entry launches one grid per tree level: log2(B) launches.
-    LAUNCHES["msm_window_accum"] += b.bit_length() - 1
+        table.data_ptr(), digits.data_ptr(),
+        None if partials is None else partials.data_ptr(), out.data_ptr(),
+        b, m, stream_of(table)))
+    # The entry launches the fold grid only when B > m, then the finish.
+    LAUNCHES["msm_window_accum"] += 1 if partials is None else 2
     return out

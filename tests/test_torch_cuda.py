@@ -24,6 +24,7 @@ from hotstuff_tpu_torch.ops.kern import msm_accum as K3
 from hotstuff_tpu_torch.ops.kern import point_chain as PC
 from hotstuff_tpu_torch.ops.kern import probe as K0
 from hotstuff_tpu_torch.ops.kern import scalar_mont as K2
+from hotstuff_tpu_torch.ops.kern import scalar_rlc as SR
 from hotstuff_tpu_torch.utils.intmath import L
 
 pytestmark = pytest.mark.gpu
@@ -74,7 +75,7 @@ def test_scalar_mont_mul_equals_plain_on_card(card):
     assert torch.equal(got, K2.scalar_mont_mul_plain(a, b))
 
 
-@pytest.mark.parametrize("b", [2, 8, 256])
+@pytest.mark.parametrize("b", [2, 4, 8, 32, 64, 256, 2048])
 def test_msm_window_accum_equals_plain_on_card(card, b):
     rng = np.random.default_rng(b)
     base = E.basepoint_ext(card).expand(1, 4, 32)
@@ -83,11 +84,48 @@ def test_msm_window_accum_equals_plain_on_card(card, b):
     digits = torch.from_numpy(
         rng.integers(0, 16, (b, 64)).astype(np.int32)).to(card)
     digits[b // 2:] = 0
-    # One grid per tree level.
+    # One grid up to 64 points (the finish alone), then fold + finish.
     got = _launched("msm_window_accum",
                     lambda: K3.msm_window_accum(table, digits),
-                    grids=b.bit_length() - 1)
+                    grids=1 if b <= 64 else 2)
     assert torch.equal(got, K3.msm_window_accum_plain(table, digits))
+
+
+def _scalar_rows(vals) -> np.ndarray:
+    return np.array([[(v >> (8 * i)) & 0xFF for i in range(32)]
+                     for v in vals], np.int32)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 128, 1024])
+def test_rlc_scalars_equals_plain_on_card(card, rows):
+    rng = np.random.default_rng(rows)
+
+    def rand(bound):
+        return [int.from_bytes(rng.bytes(32), "little") % bound
+                for _ in range(rows)]
+
+    zv, kv, sv = rand(L), rand(L), rand(L)
+    zv[0] = 0                                  # an excluded row
+    if rows > 3:
+        zv[1], kv[1], sv[1] = 1, L - 1, L - 1
+        zv[2], sv[2] = L - 1, 2**256 - 1       # S up to the headroom
+    z, k, s = (torch.from_numpy(_scalar_rows(v)).to(card)
+               for v in (zv, kv, sv))
+    got = _launched("rlc_scalars", lambda: SR.rlc_scalars(z, k, s))
+    want = SR.rlc_scalars_plain(z, k, s)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_rlc_reduce_equals_plain_on_card(card):
+    rng = np.random.default_rng(11)
+    sums = rng.integers(0, 1 << 24, (64, 32)).astype(np.int32)
+    sums[0] = 0
+    sums[1] = (1 << 24) - 1
+    sums[2] = _scalar_rows([L - 1])[0] * 1024  # 1024 rows of L - 1
+    sums = torch.from_numpy(sums).to(card)
+    for x in (sums, sums[5]):
+        got = _launched("rlc_reduce", lambda: SR.rlc_reduce(x))
+        assert torch.equal(got, SR.rlc_reduce_plain(x))
 
 
 def test_msm_window_accum_rejects_one_point_on_card(card):

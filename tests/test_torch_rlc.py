@@ -1,11 +1,11 @@
 """hotstuff_tpu_torch.ops.ed25519's one-MSM RLC program held to the JAX
 package's at one small bucket (B = 8): the combined verdict on an
 all-valid batch, on a batch with forged rows, and on an all-excluded
-batch.  Exact: the verdicts must agree, and the window sums feeding them
-are held limb for limb in tests/test_torch_ed25519.py.
+batch, and the partials feeding it (window sums limb for limb, the
+limb-wise scalar sum, the bad-point count).  Exact.
 
-The JAX program takes tens of seconds to compile on the CPU; every case
-runs at one shape, so it compiles once.
+The JAX programs take tens of seconds to compile on the CPU; every case
+runs at one shape, so each compiles once.
 """
 
 from __future__ import annotations
@@ -44,14 +44,36 @@ def verify_case():
     return good, bad
 
 
-def test_verify_rlc_packed_verdicts_match_jax(verify_case):
-    good, bad = verify_case
+def _cases(good, bad):
     z = JD._rlc_coeffs(good, b"")
     zero = np.zeros_like(z)
     skip_bad = z.copy()
     skip_bad[[2, 4, 6]] = 0                # all-zero rows are excluded
+    return [(good, z), (bad, z), (good, zero), (bad, skip_bad)]
+
+
+_jpartials = jax.jit(JE.rlc_partials)
+
+
+def test_rlc_partials_match_jax(verify_case):
+    good, bad = verify_case
+    counts = []
+    for packed, z in _cases(good, bad):
+        jw, ju, jbad = (np.asarray(x) for x in _jpartials(
+            jnp.asarray(packed), jnp.asarray(z)))
+        wsums, u_sum, n_bad = E.rlc_partials(_t(packed), _t(z))
+        assert np.array_equal(wsums.numpy(), jw)
+        assert np.array_equal(u_sum.numpy(), ju)
+        assert int(n_bad) == int(jbad)
+        counts.append(int(n_bad))
+    # The forged batch's bad R counts once; excluding its row clears it.
+    assert counts == [0, 1, 0, 0]
+
+
+def test_verify_rlc_packed_verdicts_match_jax(verify_case):
+    good, bad = verify_case
     jit = JE.verify_rlc_packed_jit
-    cases = [(good, z), (bad, z), (good, zero), (bad, skip_bad)]
+    cases = _cases(good, bad)
     jverdicts = [bool(np.asarray(jit(jnp.asarray(p), jnp.asarray(c))))
                  for p, c in cases]
     assert jverdicts == [True, False, True, True]

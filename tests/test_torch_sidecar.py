@@ -75,7 +75,8 @@ def test_ping_verify_bulk_and_stats(sidecar):
     assert stats["verdict_cache_entries"] == 23
     assert set(stats["kernels"]) == {"probe", "field_mul", "scalar_mont_mul",
                                      "msm_window_accum", "point_ladder",
-                                     "decompress", "point_multiples"}
+                                     "decompress", "point_multiples",
+                                     "rlc_scalars", "rlc_reduce"}
 
 
 def test_full_queue_answers_busy(sidecar, monkeypatch):
