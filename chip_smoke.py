@@ -30,14 +30,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
      wall time split into the program's pack, dispatch and fetch
      stages, the card's busy time from torch.profiler, and the
      operators each function dispatches (the RLC calls must dispatch
-     none from scalar25519, whose work the scalar_rlc kernels do).
+     none from scalar25519, whose work the scalar_rlc kernels do);
+  7. the BLS12-381 path: the four Fq12 chain kernels (fq12_mul at 1 and
+     68 rows, miller_accumulate at 2 and 68 pairings of real Miller
+     lines, fq12_pow with the final exponentiation's hard exponent,
+     fq_pow with q - 2) beside their plain versions, exact, timed as in
+     phase 4, with their int32 bounds on the card and on one SM (the
+     chain bound); then, on a 100-key BLS committee, the port's sidecar
+     serves a QC of 67 votes (OP_BLS_VERIFY_VOTES), the QC with one
+     vote over another digest, the QC with a signature that is no
+     curve point, OP_BLS_VERIFY_AGG over the 67 keys, a TC of 67 votes
+     over 67 digests (OP_BLS_VERIFY_MULTI), OP_BLS_SIGN and a repeat of
+     the QC; every verdict must equal the port's host reference
+     (offchain/bls12381.py), the signature its host signer's bytes, the
+     repeat must come from the verdict cache, and every pairing check
+     must launch the Fq12 kernels (launches counted over these requests
+     and per request); each request's latency is split into the
+     device's check and the rest (host preparation: decoding,
+     aggregation, the subgroup test, hash-to-G2, the Miller lines, the
+     copy);
+  8. profile the QC's and the TC's pairing check on the card (the
+     requests' own Miller lines): wall time, torch.profiler's device
+     busy time, kernel launches and operators by caller.
 
 The line before the last is a JSON object listing the kernels with
-their launches on the main path (over the requests, the probe's at
-boot, and one request of each kind), times and bounds; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device, or without the
-rest of the repository beside it, the script exits non-zero and prints
-no result.
+their launches on the main paths (over the requests, the probe's at
+boot, and one request of each kind; the Fq12 kernels over the BLS
+requests), times and bounds; the last line is {"ok": true, "device":
+{...}}.  Without a CUDA device, or without the rest of the repository
+beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -100,6 +121,25 @@ OPS_MULTIPLES_ROW = OPS_TO_CACHED + 14 * OPS_ADD_CACHED
 PEAK_WARP_SHUFFLES_PER_S = 132 * 1.98e9
 
 
+# BLS12-381 (fq12_chain.cu, field381.cuh), counted the same way on
+# 48-limb elements: a Montgomery product is the a*b, m = T q' (low half)
+# and m*q schoolbooks plus ten carry steps over 96, 48 and 96 limbs;
+# reduce_sum six steps over 49-48 limbs and two folds; an Fq12 product
+# 144 Montgomery products, the anti-diagonal adds, 35 reduce_sums and the
+# fold's 11 (add, add, sub).
+OPS_MONT_381 = (48 * 48 + 48 * 49 // 2 + 48 * 48
+                + 3 * (3 * 96 + 3 * 48 + 3 * 96 + 48) + 8)
+OPS_REDUCE_SUM_381 = 3 * 3 * 49 + 48 + 3 * 2 * 48 + 2 + 48 + 3 * 48
+OPS_ADD_381 = 48 + 3 * 48
+OPS_SUB_381 = 2 * 48 + 3 * 2 * 48
+OPS_FQ12_MUL = (144 * OPS_MONT_381 + 144 * 48 + 35 * OPS_REDUCE_SUM_381
+                + 11 * (2 * OPS_ADD_381 + OPS_SUB_381))
+FQ12_BYTES = 12 * 48 * 4
+# One SM's int32 rate: the least time of a dependent chain that one
+# block (one SM) runs, whatever its layout inside the SM.
+PEAK_SM_INT32_OPS_PER_S = 64 * 1.98e9
+
+
 def ops_ladder_row(steps: int, ndbl: int) -> int:
     dbl = (ndbl - 1) * OPS_DBL_NO_T + OPS_DBL if ndbl else 0
     return steps * (dbl + OPS_ADD_CACHED)
@@ -134,8 +174,13 @@ def sass_shuffles() -> dict:
     name = None
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            found = re.search(r"\d+([a-z_]+_kernel)", line)
-            name = found.group(1) if found else None
+            # The mangled name's parts are length-prefixed: take the
+            # part of each length that names a kernel.
+            name = None
+            for m in re.finditer(r"\d+", line):
+                part = line[m.end():m.end() + int(m.group())]
+                if part.endswith("_kernel"):
+                    name = part
             if name:
                 counts[name] = 0
         elif name and "SHFL" in line:
@@ -520,8 +565,11 @@ def sidecar_phase(dev, reqs, want):
     if not boot["probe"]:
         fail("the sidecar's boot did not launch the probe kernel")
     for name, count in launches.items():
-        if name not in OFF_PATH and count == 0:
+        if name not in OFF_PATH + BLS_KERNELS and count == 0:
             fail(f"kernel {name} was not launched by the requests")
+    for name in BLS_KERNELS:
+        if launches[name]:
+            fail(f"the Ed25519 requests launched the BLS kernel {name}")
     if launches["scalar_mont_mul"]:
         fail("the requests launched K2 (scalar_mont_mul), whose work on "
              "the RLC path belongs to rlc_scalars and rlc_reduce")
@@ -638,6 +686,349 @@ def profile_phase(dev, reqs, want) -> None:
                  f"operators {scalar_ops}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7-8: the BLS12-381 path
+# ---------------------------------------------------------------------------
+
+BLS_KERNELS = ("fq12_mul", "miller_accumulate", "fq12_pow", "fq_pow")
+BLS_SOURCE = "hotstuff_tpu_torch/ops/kern/csrc/fq12_chain.cu"
+# No TPU kernel: the JAX package runs the whole check as one XLA program.
+BLS_REPLACES = "hotstuff_tpu/ops/bls381.py:217"
+QC_LABEL = "QC of 67 votes"
+TC_LABEL = "TC of 67 votes over 67 digests"
+
+
+def bls_kernel_phase(dev, rng):
+    """Phase 7, first half: each Fq12 chain kernel beside its plain
+    version at the BLS path's shapes, exact.  The plain versions are
+    thousands of operators (seconds on the card), so each is timed once,
+    by the call that the kernel is compared with."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.offchain import bls12381 as bls
+    from hotstuff_tpu_torch.ops import bls381 as B
+    from hotstuff_tpu_torch.ops import field381 as F381
+    from hotstuff_tpu_torch.ops.kern import fq12_chain as FC
+
+    rows = []
+
+    def fq12(n):
+        return torch.from_numpy(np.stack([B.host_fq12_to_mont_limbs(
+            [int.from_bytes(rng.bytes(48), "little") % F381.Q
+             for _ in range(12)]) for _ in range(n)])).to(dev)
+
+    def measure(name, shape, kernel, plain, args, nbytes, ops, chain_ops,
+                iters):
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(*args)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        err = max_abs_err(got, want)
+        if err != 0:
+            fail(f"{name} at {shape} differs from its plain version "
+                 f"(max abs err {err})")
+        ms = time_ms(lambda: kernel(*args), iters)
+        dev_ms = graph_ms(lambda: kernel(*args), iters)
+        b_ms, b_by = bound_ms(nbytes, ops)
+        chain_ms = chain_ops / PEAK_SM_INT32_OPS_PER_S * 1e3
+        print(f"{name} {shape}: exact; kernel {ms:.6f} ms a call from "
+              f"Python, {dev_ms:.6f} ms a launch in a CUDA graph; plain "
+              f"{plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), chain "
+              f"bound on one SM {chain_ms:.6f} ms", flush=True)
+        return dict(max_abs_err=err, ms=ms, graph_ms=dev_ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    chain_bound_ms=chain_ms)
+
+    def record(name, shape, *args):
+        rows.append(dict(name=name, route="cuda", shape=shape,
+                         source=BLS_SOURCE, replaces=BLS_REPLACES,
+                         library_ms=None, **measure(name, shape, *args)))
+
+    # fq12_mul at the TC's 68 rows and at batch 1 (the products outside
+    # the loops: the P - 1 Miller products, fq12_inv's, the easy part's).
+    for n in (68, 1):
+        x, y = fq12(n), fq12(n)
+        args = (f"({n}, 12, 48)", FC.fq12_mul, FC.fq12_mul_plain, (x, y),
+                3 * n * FQ12_BYTES, n * OPS_FQ12_MUL, OPS_FQ12_MUL, 50)
+        if n == 68:
+            record("fq12_mul", *args)
+        else:
+            rows[-1].update({f"batch1_{k}": v for k, v in
+                             measure("fq12_mul", *args).items()})
+
+    # miller_accumulate at the QC's 2 pairings and the TC's 68: real
+    # Miller lines (three (pk, H(m)) rows and the (-g1, signature) row,
+    # tiled to 68).
+    keys = [bls.key_gen(bytes([200, i]) * 16) for i in range(3)]
+    msgs = [bytes([i]) * 32 for i in range(3)]
+    sig = bls.aggregate([bls.sign(sk, m) for (sk, _), m in zip(keys, msgs)])
+    real = B.multi_pairing_rows([pk for _, pk in keys], msgs, sig)
+    lines4 = torch.from_numpy(np.stack(real)).to(dev)
+    steps = lines4.shape[1]
+    for n in (2, 68):
+        lines = lines4.repeat(n // 4 + 1, 1, 1, 1, 1)[-n:].contiguous()
+        args = (f"({n}, {steps}, 2, 12, 48)", FC.miller_accumulate,
+                FC.miller_accumulate_plain, (lines,),
+                lines.numel() * 4 + n * FQ12_BYTES,
+                n * steps * 3 * OPS_FQ12_MUL, steps * 3 * OPS_FQ12_MUL, 10)
+        if n == 2:
+            record("miller_accumulate", *args)
+        else:
+            rows[-1].update({f"tc68_{k}": v for k, v in
+                             measure("miller_accumulate", *args).items()})
+
+    # fq12_pow with the hard exponent at batch 1 (the check's shape).
+    e = B._HARD_EXP
+    nd = len(F381.exponent_digits(e))
+    chain = (14 + 5 * nd) * OPS_FQ12_MUL
+    record("fq12_pow", "(1, 12, 48), e = (q^4 - q^2 + 1) / r",
+           FC.fq12_pow, FC.fq12_pow_plain, (fq12(1), e),
+           2 * FQ12_BYTES + nd * 4, chain, chain, 5)
+
+    # fq_pow with q - 2 at batch 1 (fq12_inv's one Fq inversion), and a
+    # row whose top limb takes the reduction to the stable range first.
+    e = F381.Q - 2
+    nd = len(F381.exponent_digits(e))
+    chain = (14 + 5 * nd) * OPS_MONT_381
+    x = fq12(1)[:, 0].contiguous()
+    record("fq_pow", "(1, 48), e = q - 2", FC.fq_pow, FC.fq_pow_plain,
+           (x, e), 2 * 48 * 4 + nd * 4, chain, chain, 20)
+    high = x.repeat(2, 1)
+    high[1, -1] = FC.STABLE_TOP + 100
+    err = max_abs_err(FC.fq_pow(high, e), FC.fq_pow_plain(high, e))
+    if err != 0:
+        fail(f"fq_pow on a row above STABLE_TOP differs from its plain "
+             f"version (max abs err {err})")
+    print("fq_pow with a top limb above STABLE_TOP: exact", flush=True)
+    return rows
+
+
+def make_bls_requests():
+    """A 100-key BLS committee from a fixed seed; a QC of 67 votes over
+    one digest and a TC of 67 votes over 67 distinct digests.  Returns
+    (requests, expected results): each request is (label, client method
+    name, arguments), each result a verdict or the signature's bytes."""
+    import hashlib
+
+    from hotstuff_tpu_torch.offchain import bls12381 as bls
+
+    def seed(tag: str, i: int) -> bytes:
+        return hashlib.sha256(f"chip-smoke/{tag}/{i}".encode()).digest()
+
+    committee = [bls.key_gen(seed("bls-replica", i)) for i in range(100)]
+    voters = committee[:67]
+    pks = [pk for _, pk in voters]
+    pk_enc = [bls.g1_encode(pk) for pk in pks]
+    digest = seed("bls-block", 0)
+    sigs = [bls.sign(sk, digest) for sk, _ in voters]
+    sig_enc = [bls.g2_encode(s) for s in sigs]
+    agg = bls.aggregate(sigs)
+    qc_ok = bls.verify_aggregate_common(pks, digest, agg)
+
+    forged = list(sig_enc)
+    forged_sig = bls.sign(voters[1][0], seed("bls-forged", 0))
+    forged[1] = bls.g2_encode(forged_sig)
+    forged_ok = bls.verify_aggregate_common(
+        pks, digest, bls.aggregate(sigs[:1] + [forged_sig] + sigs[2:]))
+
+    junk = list(sig_enc)
+    junk[2] = b"\x01" * 192                    # not a point of the curve
+    try:
+        bls.g2_decode_lax(junk[2])
+        fail("the malformed signature decodes")
+    except ValueError:
+        pass
+
+    tc_msgs = [seed("bls-round", i) for i in range(67)]
+    tc_sigs = [bls.sign(sk, m) for (sk, _), m in zip(voters, tc_msgs)]
+    tc_agg = bls.aggregate(tc_sigs)
+    tc_ok = bls.verify_aggregate(pks, tc_msgs, tc_agg)
+
+    sk0 = committee[0][0]
+    reqs = [
+        (QC_LABEL, "bls_verify_votes", (digest, pk_enc, sig_enc)),
+        ("QC, one vote over another digest", "bls_verify_votes",
+         (digest, pk_enc, forged)),
+        ("QC, one signature not a curve point", "bls_verify_votes",
+         (digest, pk_enc, junk)),
+        ("aggregate over 67 keys", "bls_verify_aggregate",
+         (digest, bls.g2_encode(agg), pk_enc)),
+        (TC_LABEL, "bls_verify_multi",
+         (tc_msgs, pk_enc, [bls.g2_encode(s) for s in tc_sigs])),
+        ("sign", "bls_sign", (digest, sk0.to_bytes(48, "big"))),
+        ("QC of 67 votes, repeated", "bls_verify_votes",
+         (digest, pk_enc, sig_enc)),
+    ]
+    want = [qc_ok, forged_ok, False, qc_ok, tc_ok,
+            bls.g2_encode(bls.sign(sk0, digest)), qc_ok]
+    if [qc_ok, forged_ok, tc_ok] != [True, False, True]:
+        fail(f"host reference verdicts {[qc_ok, forged_ok, tc_ok]}")
+    return reqs, want
+
+
+def bls_sidecar_phase(dev, reqs, want):
+    """Phase 7, second half: the BLS requests through the port's sidecar
+    on the card.  The launch counts are zeroed just before the requests
+    and read just after.  Every pairing check's device time is taken by
+    wrapping ops/bls381.pairings_check (its call and a synchronize), and
+    its Miller lines kept for phase 8.  Returns (launch counts over the
+    requests, counts per request, {label: lines})."""
+    import torch
+
+    from hotstuff_tpu_torch.ops import bls381 as B
+    from hotstuff_tpu_torch.ops import kern
+    from hotstuff_tpu_torch.sidecar import protocol as proto
+    from hotstuff_tpu_torch.sidecar import service
+    from hotstuff_tpu_torch.sidecar.client import SidecarClient
+
+    checks = []
+    real_check = B.pairings_check
+
+    def timed_check(lines):
+        t0 = time.perf_counter()
+        out = real_check(lines)
+        torch.cuda.synchronize()
+        checks.append(((time.perf_counter() - t0) * 1e3, lines))
+        return out
+
+    engine = service.VerifyEngine(device=dev)
+    server = None
+    per_request: dict = {}
+    kept: dict = {}
+    B.pairings_check = timed_check
+    try:
+        t0 = time.monotonic()
+        service.warmup_bls(engine)
+        print(f"BLS warm-up (a 3-vote aggregate) on {engine.device}: "
+              f"{time.monotonic() - t0:.3f} s", flush=True)
+        server = service.SidecarServer(("127.0.0.1", 0), engine)
+        threading.Thread(target=server.serve_forever,
+                         kwargs={"poll_interval": 0.1}, daemon=True).start()
+        with SidecarClient(port=server.server_address[1],
+                           timeout=600.0) as client:
+            kern.reset_launches()
+            for (label, method, args), expect in zip(reqs, want):
+                before = dict(kern.LAUNCHES)
+                n_checks = len(checks)
+                t0 = time.perf_counter()
+                got = getattr(client, method)(*args)
+                ms = (time.perf_counter() - t0) * 1e3
+                delta = {k: kern.LAUNCHES[k] - before[k] for k in before
+                         if kern.LAUNCHES[k] != before[k]}
+                per_request[label] = delta
+                device_ms = sum(c[0] for c in checks[n_checks:])
+                for _, lines in checks[n_checks:]:
+                    kept[label] = lines
+                print(f"BLS {label}: verdict "
+                      f"{got if method != 'bls_sign' else f'{len(got)} bytes'}"
+                      f", {ms:.3f} ms (device check {device_ms:.3f} ms, "
+                      f"host preparation and the rest "
+                      f"{ms - device_ms:.3f} ms), kernel launches {delta}",
+                      flush=True)
+                if got != expect:
+                    fail(f"BLS {label}: {got!r} differs from the host "
+                         f"reference {expect!r}")
+                checked = len(checks) > n_checks
+                if "curve point" in label and engine.cached_bls_verdict(
+                        proto.BlsVotesRequest(0, *args)) != [False]:
+                    fail(f"BLS {label}: the decode failure was not cached")
+                if method != "bls_sign" and "repeated" not in label \
+                        and "curve point" not in label:
+                    if not checked or any(not delta.get(k)
+                                          for k in BLS_KERNELS):
+                        fail(f"BLS {label}: the check did not launch every "
+                             f"Fq12 kernel ({delta})")
+                elif checked or delta:
+                    fail(f"BLS {label}: ran a pairing check or launched "
+                         f"kernels ({delta})")
+            launches = dict(kern.LAUNCHES)
+            stats = client.stats()
+        print(f"OP_STATS paths after the BLS requests: {stats['paths']}",
+              flush=True)
+    finally:
+        B.pairings_check = real_check
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        engine.stop()
+    for name in BLS_KERNELS:
+        if not launches[name]:
+            fail(f"kernel {name} was not launched by the BLS requests")
+    print(f"kernel launches over the BLS requests: "
+          f"{ {k: launches[k] for k in BLS_KERNELS} }", flush=True)
+    return launches, per_request, kept
+
+
+def bls_profile_phase(dev, kept) -> None:
+    """Phase 8: the QC's and the TC's pairing check on the card from the
+    requests' own Miller lines (host preparation excluded): wall time of
+    three runs and the first one's kernel launches, one run under
+    torch.profiler (device busy time and share, the kernels that fill
+    it), and one run counting the operators each function of the port
+    dispatches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from hotstuff_tpu_torch.ops import bls381 as B
+    from hotstuff_tpu_torch.ops import kern
+
+    cuda = torch.autograd.DeviceType.CUDA
+    for label, key in (("QC check (2 pairings)", QC_LABEL),
+                       ("TC check (68 pairings)", TC_LABEL)):
+        lines = kept[key]
+        walls = []
+        for i in range(3):
+            kern.reset_launches()
+            t0 = time.perf_counter()
+            ok = bool(B.pairings_check(lines).item())
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                launches = {k: v for k, v in kern.LAUNCHES.items() if v}
+            if not ok:
+                fail(f"profile {label}: the check returned False")
+        wall = sorted(walls)[1]
+        # Two checks under the profiler, the first a warm-up step that
+        # is not recorded: the device tracer loses the first kernels it
+        # sees (a check's first launches were missing without it).
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     acc_events=True) as prof:
+            for _ in range(2):
+                B.pairings_check(lines).item()
+                torch.cuda.synchronize()
+                prof.step()
+        by_name: dict = {}
+        for e in prof.events():
+            # The step's own range is on the device timeline too.
+            if e.device_type == cuda and not e.name.startswith(
+                    "ProfilerStep"):
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        busy_ms = sum(us for _, us in by_name.values()) / 1e3
+        events = sum(n for n, _ in by_name.values())
+        share = f"{busy_ms / wall:.4f}" if events else "not measured"
+        print(f"profile BLS {label}: wall {wall:.3f} ms (median of 3: "
+              f"{', '.join(f'{w:.3f}' for w in walls)}); kernel launches "
+              f"{launches}; device events {events}, device busy "
+              f"{busy_ms:.3f} ms, busy share of wall {share}", flush=True)
+        for name, (n, us) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][1]):
+            if "_kernel(" in name or us >= 300:   # the port's, or large
+                print(f"  device {us / 1e3:.3f} ms in {n} events: "
+                      f"{name[:90]}", flush=True)
+        ops = ops_by_caller(lambda: B.pairings_check(lines).item())
+        top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
+        print(f"  operators dispatched: {sum(ops.values())}; by caller: "
+              + ", ".join(f"{k} {n}" for k, n in top_ops), flush=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "hotstuff_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -702,7 +1093,23 @@ def main() -> int:
                                        for k, d in per_kind.items()}
     profile_phase(dev, reqs, want)
 
-    print(json.dumps({"kernels": rows}), flush=True)
+    # Phases 7-8: the BLS12-381 path.
+    t_bls = time.monotonic()
+    bls_rows = bls_kernel_phase(dev, rng)
+    t0 = time.monotonic()
+    bls_reqs, bls_want = make_bls_requests()
+    print(f"BLS committee keys, 135 signatures and the host reference "
+          f"verdicts in {time.monotonic() - t0:.3f} s", flush=True)
+    bls_launches, bls_per_request, kept = bls_sidecar_phase(
+        dev, bls_reqs, bls_want)
+    for row in bls_rows:
+        row["launches"] = bls_launches[row["name"]]
+        row["launches_per_request"] = {
+            k: d.get(row["name"], 0) for k, d in bls_per_request.items()}
+    bls_profile_phase(dev, kept)
+    print(f"BLS phases: {time.monotonic() - t_bls:.3f} s", flush=True)
+
+    print(json.dumps({"kernels": rows + bls_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels of the verify hot path, and their routing.
+"""The hand-written CUDA kernels of the verify hot paths, and their routing.
 
-Nine kernels, each in ``csrc/`` with a Python wrapper and a plain
+Thirteen kernels, each in ``csrc/`` with a Python wrapper and a plain
 PyTorch version of the same function beside it:
 
   probe             x + 1, the toolchain and launch check (probe.py)
@@ -14,6 +14,10 @@ PyTorch version of the same function beside it:
   rlc_scalars       K2 redesigned: the RLC program's scalar work mod L
   rlc_reduce          in one launch each (scalar_rlc.py): the products,
                       lifts and digits per row; the limb-sum reduction
+  fq12_mul          the BLS12-381 pairing check's Fq12 chains
+  miller_accumulate   (fq12_chain.py, no TPU kernel behind them): one
+  fq12_pow            Fq12 product, the whole Miller accumulation, the
+  fq_pow              windowed exponentiations over Fq12 and over Fq
 
 Routing follows the tensors and nothing else: a CUDA tensor always goes
 through the kernel, a CPU tensor always through the plain version.
@@ -29,7 +33,9 @@ import torch
 
 LAUNCHES = {"probe": 0, "field_mul": 0, "scalar_mont_mul": 0,
             "msm_window_accum": 0, "point_ladder": 0, "decompress": 0,
-            "point_multiples": 0, "rlc_scalars": 0, "rlc_reduce": 0}
+            "point_multiples": 0, "rlc_scalars": 0, "rlc_reduce": 0,
+            "fq12_mul": 0, "miller_accumulate": 0, "fq12_pow": 0,
+            "fq_pow": 0}
 
 
 def reset_launches() -> None:

@@ -46,6 +46,10 @@ SIGNATURES = {
     "hk_point_multiples": [_P, _P, _LL, _I, _I, _P],
     "hk_rlc_scalars": [_P, _P, _P, _P, _P, _LL, _P],
     "hk_rlc_reduce": [_P, _P, _LL, _P],
+    "hk_fq12_mul": [_P, _P, _P, _LL, _P],
+    "hk_miller_accumulate": [_P, _P, _LL, _I, _P],
+    "hk_fq12_pow": [_P, _P, _P, _LL, _I, _P],
+    "hk_fq_pow": [_P, _P, _P, _LL, _I, _P],
 }
 
 _lock = threading.Lock()

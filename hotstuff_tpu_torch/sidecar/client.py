@@ -119,6 +119,14 @@ class SidecarClient:
             lambda r: proto.encode_bls_agg_request(r, msg, agg_sig, pks))
         return self._bls_verdict(self._await(rid))
 
+    def bls_verify_votes(self, msg: bytes, pks, sigs) -> bool:
+        """Per-vote BLS verify over one digest (the QC shape the C++
+        node sends: the sidecar aggregates the signatures itself).
+        Raises SidecarOverloaded on a queue-full shed."""
+        rid = self._send(
+            lambda r: proto.encode_bls_votes_request(r, msg, pks, sigs))
+        return self._bls_verdict(self._await(rid))
+
     def bls_verify_multi(self, msgs, pks, sigs) -> bool:
         """Multi-digest BLS verify (the TC shape): n (digest, pk, sig)
         triples checked as one product of pairings in ONE round-trip.

@@ -2,17 +2,29 @@
 hotstuff_tpu/sidecar/service.py, cut to the main path.
 
 A long-lived process owns the device.  Connection threads decode frames
-(``protocol.py``, unchanged wire protocol v6) and admit Ed25519 verify
-requests into two bounded class queues; one engine thread takes
-launches, latency class first, each coalesced up to the launch cap of
-``MAX_SUBBATCH`` signatures, runs the routed verify program (the one-MSM
+(``protocol.py``, unchanged wire protocol v6) and admit verify requests
+into two bounded class queues; one engine thread takes launches, latency
+class first.  Ed25519 requests coalesce up to the launch cap of
+``MAX_SUBBATCH`` signatures, run the routed verify program (the one-MSM
 RLC program or the per-signature program, ``sched/shapes.route``) and
-fans the mask back out.  Served opcodes: OP_PING, OP_VERIFY_BATCH
-(latency class: QC/TC votes), OP_VERIFY_BULK (bulk class: mempool
-batches) and OP_STATS.  Other opcodes close the connection, which the
+fan the mask back out.  BLS requests (``scheme=bls`` committees) run one
+at a time, uncoalesced: the aggregate checks of ops/bls381.py on the
+device, signing on the host.
+
+Served opcodes: OP_PING, OP_VERIFY_BATCH (latency class: QC/TC votes),
+OP_VERIFY_BULK (bulk class: mempool batches), OP_STATS, and, in the
+latency class, OP_BLS_VERIFY_VOTES (a QC's per-vote signatures over one
+digest), OP_BLS_VERIFY_AGG (one aggregate signature), OP_BLS_VERIFY_MULTI
+(a TC: per-vote signatures over distinct digests) and OP_BLS_SIGN.
+Other opcodes (OP_HELLO, OP_CHAOS) close the connection, which the
 node's client treats as a dead sidecar and verifies on the host.
 
+There is no launch guard yet: a BLS check runs on the engine thread
+without a deadline, so a hung device call parks the engine (the JAX
+package runs BLS under its guard, hotstuff_tpu/sidecar/guard.py).
+
 Run:  python -m hotstuff_tpu_torch.sidecar --port 7100 [--device cuda|cpu]
+          [--warm-bls] [--warm-bls-multi N]
 """
 
 from __future__ import annotations
@@ -44,13 +56,34 @@ QUEUE_CAP_SIGS = {LATENCY: 64 * 1024, BULK: 128 * 1024}
 RETRY_AFTER_MS = 50
 
 
+BLS_VERIFY_OPS = (proto.OP_BLS_VERIFY_AGG, proto.OP_BLS_VERIFY_VOTES,
+                  proto.OP_BLS_VERIFY_MULTI)
+BLS_REQUESTS = (proto.BlsAggRequest, proto.BlsVotesRequest,
+                proto.BlsMultiRequest, proto.BlsSignRequest)
+
+# OP_STATS path keys of the BLS requests.
+BLS_PATHS = {proto.BlsAggRequest: "bls_agg", proto.BlsVotesRequest:
+             "bls_votes", proto.BlsMultiRequest: "bls_multi",
+             proto.BlsSignRequest: "bls_sign"}
+
+
 def class_of_opcode(opcode: int) -> str:
     return BULK if opcode == proto.OP_VERIFY_BULK else LATENCY
 
 
+def sigs_of(request) -> int:
+    """Signatures a request carries, the unit of the admission bounds
+    (a BLS aggregate counts its public keys, a signing request one)."""
+    if isinstance(request, proto.BlsSignRequest):
+        return 1
+    return len(request.pks)
+
+
 class Pending:
-    """One admitted request, its class and its reply callback, which
-    takes the mask, or None for an OP_BUSY answer."""
+    """One admitted request, its class and its reply callback.  An
+    Ed25519 reply takes the mask, or None for an OP_BUSY answer; a BLS
+    reply takes the verdict list (or signature bytes), or None for a
+    transient failure (sent as [False], never cached)."""
 
     __slots__ = ("request", "reply_fn", "cls")
 
@@ -87,7 +120,7 @@ class VerifyEngine:
     def submit(self, request, reply_fn, cls: str = LATENCY) -> bool:
         """Admit one verify request; False (nothing retained, the caller
         replies OP_BUSY) when its class queue is full."""
-        n = len(request.msgs)
+        n = sigs_of(request)
         with self._cond:
             if self._queued_sigs[cls] + n > QUEUE_CAP_SIGS[cls]:
                 self.stats.note_queue_full(cls)
@@ -109,6 +142,46 @@ class VerifyEngine:
             out.append(v)
         return out or None
 
+    @staticmethod
+    def bls_cache_key(req):
+        """Verdict-cache key for a BLS verify request, or None if the op
+        is uncacheable (signing).  Validity is a pure function of the
+        request's own bytes, so the whole request keys the verdict: N
+        replicas verifying one certificate cost one pairing check.  The
+        JAX package's keys (hotstuff_tpu/sidecar/service.py
+        bls_cache_key): SHA-256 of the length-prefixed parts."""
+        import hashlib
+
+        def h(tag, *parts):
+            # Fixed 32-byte keys: BLS requests embed every pk and sig
+            # (~32 KB for a 100-vote TC).  Length-prefixed parts keep
+            # the encoding injective before hashing.
+            d = hashlib.sha256(tag)
+            for p in parts:
+                seq = p if isinstance(p, (list, tuple)) else (p,)
+                d.update(len(seq).to_bytes(4, "big"))  # list boundary
+                for b in seq:
+                    d.update(len(b).to_bytes(4, "big"))
+                    d.update(b)
+            return d.digest()
+
+        if isinstance(req, proto.BlsMultiRequest):
+            return ("bm", h(b"bm", req.msgs, req.pks, req.sigs))
+        if isinstance(req, proto.BlsVotesRequest):
+            return ("bv", h(b"bv", req.msg, req.pks, req.sigs))
+        if isinstance(req, proto.BlsAggRequest):
+            return ("ba", h(b"ba", req.msg, req.pks, req.agg_sig))
+        return None
+
+    def cached_bls_verdict(self, req):
+        """[bool] if this BLS verify request's verdict is cached, else
+        None (connection threads' fast path)."""
+        key = self.bls_cache_key(req)
+        if key is None:
+            return None
+        v = self._verdicts.get(key)
+        return None if v is None else [v]
+
     def stats_snapshot(self) -> dict:
         from ..ops import kern
 
@@ -128,9 +201,9 @@ class VerifyEngine:
 
     def _next_launch(self):
         """Block until work or stop; the latency class drains first, and
-        a launch coalesces whole requests up to the launch cap (a single
-        larger request goes alone and is sliced by the per-signature
-        path)."""
+        a launch coalesces whole Ed25519 requests up to the launch cap (a
+        single larger request goes alone and is sliced by the
+        per-signature path).  A BLS request is a launch of its own."""
         with self._cond:
             while not self._stopped and not any(self._queues.values()):
                 self._cond.wait(timeout=0.25)
@@ -139,10 +212,12 @@ class VerifyEngine:
             cls = LATENCY if self._queues[LATENCY] else BULK
             q = self._queues[cls]
             batch = [q.popleft()]
-            total = len(batch[0].request.msgs)
-            while q and total + len(q[0].request.msgs) <= MAX_SUBBATCH:
-                total += len(q[0].request.msgs)
-                batch.append(q.popleft())
+            total = sigs_of(batch[0].request)
+            if not isinstance(batch[0].request, BLS_REQUESTS):
+                while (q and not isinstance(q[0].request, BLS_REQUESTS)
+                       and total + len(q[0].request.msgs) <= MAX_SUBBATCH):
+                    total += len(q[0].request.msgs)
+                    batch.append(q.popleft())
             self._queued_sigs[cls] -= total
         self.stats.note_launch(cls, total)
         return batch
@@ -152,6 +227,9 @@ class VerifyEngine:
             batch = self._next_launch()
             if batch is None:
                 break
+            if isinstance(batch[0].request, BLS_REQUESTS):
+                self._execute_bls(batch[0])
+                continue
             try:
                 mask = self._pack(batch)()()
             except Exception:
@@ -230,6 +308,66 @@ class VerifyEngine:
 
         return dispatch
 
+    def _execute_bls(self, item):
+        """Run one BLS request on the engine thread and send its one
+        reply: the JAX package's reply contract
+        (hotstuff_tpu/sidecar/service.py _execute_bls), without its
+        launch guard.  Only verdicts the inner body marks cacheable --
+        pure functions of the request bytes: decode and subgroup
+        failures, completed checks -- enter the verdict cache; a
+        transient failure (an exception) replies None, which the
+        connection sends as [False] and nothing caches, since one
+        poisoned shared entry would reject a valid certificate for every
+        replica."""
+        req = item.request
+        self.stats.note_path(BLS_PATHS[type(req)])
+        cache_key = self.bls_cache_key(req)
+        try:
+            payload, cacheable = self._execute_bls_inner(req, cache_key)
+        except Exception:
+            log.exception("BLS request failed")
+            payload, cacheable = None, False
+        if cacheable and cache_key is not None and payload:
+            self._cache_verdict(cache_key, bool(payload[0]))
+        item.reply_fn(payload)
+
+    def _execute_bls_inner(self, req, cache_key):
+        """The BLS request body; returns ``(payload, cacheable)``.  Every
+        verify runs the pairing check on ``self.device``: there is no
+        per-shape compile, so no shape needs warming and none falls back
+        to the host."""
+        from ..offchain import bls12381 as bls
+        from ..ops import bls381 as dbls
+
+        if isinstance(req, proto.BlsSignRequest):
+            # Signing is G2 scalar multiplication: host bigint work.
+            sk = int.from_bytes(req.sk, "big")
+            return bls.g2_encode(bls.sign(sk, req.msg)), False
+        cached = self._verdicts.get(cache_key)
+        if cached is not None:
+            return [cached], False
+        try:
+            if isinstance(req, proto.BlsAggRequest):
+                agg = bls.g2_decode(req.agg_sig)
+            else:
+                # Per-vote signatures get the on-curve check only; the
+                # one aggregate gets the [R]P subgroup test (the pairing
+                # statement depends only on the aggregate).
+                agg = bls.aggregate(
+                    [bls.g2_decode_lax(s) for s in req.sigs])
+                if not bls.g2_in_subgroup(agg):
+                    return [False], True
+            pks = [bls.g1_decode(p) for p in req.pks]
+        except ValueError:
+            return [False], True
+        if isinstance(req, proto.BlsMultiRequest):
+            ok = dbls.verify_aggregate_multi(pks, req.msgs, agg,
+                                             device=self.device)
+        else:
+            ok = dbls.verify_aggregate_common(pks, req.msg, agg,
+                                              device=self.device)
+        return [bool(ok)], True
+
     def _cache_verdict(self, record, ok: bool):
         if record not in self._verdicts:
             while len(self._verdicts) >= self.VERDICT_CACHE_CAP:
@@ -278,21 +416,33 @@ class _Handler(socketserver.BaseRequestHandler):
                     outbox.put(proto.encode_stats_reply(
                         req.request_id, engine.stats_snapshot()))
                     continue
-                if opcode not in (proto.OP_VERIFY_BATCH,
-                                  proto.OP_VERIFY_BULK):
+                if opcode in (proto.OP_VERIFY_BATCH, proto.OP_VERIFY_BULK):
+                    verdicts = engine.cached_verdicts(req)
+                elif opcode in BLS_VERIFY_OPS:
+                    verdicts = engine.cached_bls_verdict(req)
+                elif opcode == proto.OP_BLS_SIGN:
+                    verdicts = None
+                else:
                     log.warning("opcode %d is not served by this sidecar; "
                                 "closing connection", opcode)
                     return
-                verdicts = engine.cached_verdicts(req)
                 if verdicts is not None:
                     outbox.put(proto.encode_reply(
                         opcode, req.request_id, verdicts))
                     continue
 
-                def reply(mask, _rid=req.request_id, _op=opcode):
-                    frame = proto.encode_reply(_op, _rid, mask) \
-                        if mask is not None \
-                        else proto.encode_busy_reply(_rid, RETRY_AFTER_MS)
+                def reply(result, _rid=req.request_id, _op=opcode):
+                    if _op == proto.OP_BLS_SIGN:
+                        frame = proto.encode_reply_raw(_op, _rid,
+                                                       result or b"")
+                    elif _op in BLS_VERIFY_OPS:
+                        frame = proto.encode_reply(
+                            _op, _rid, result if result is not None
+                            else [False])
+                    elif result is not None:
+                        frame = proto.encode_reply(_op, _rid, result)
+                    else:
+                        frame = proto.encode_busy_reply(_rid, RETRY_AFTER_MS)
                     try:
                         outbox.put_nowait(frame)
                     except queue.Full:
@@ -341,13 +491,51 @@ def warmup(engine: VerifyEngine) -> None:
         raise RuntimeError("warm-up RLC verify returned false")
 
 
-def serve(host: str = "127.0.0.1", port: int = 7100, device=None):
+def warmup_bls(engine: VerifyEngine, n_votes: int = 3,
+               multi: bool = False) -> None:
+    """One BLS aggregate verify of n votes on the engine's device before
+    the socket binds (``--warm-bls``: the common-message QC check;
+    ``--warm-bls-multi N``: the N-vote distinct-digest TC check).  It
+    builds the kernels and leaves the Frobenius tables and exponent
+    digits on the device; no shape gates the card path, every shape
+    runs the same kernels."""
+    from ..offchain import bls12381 as bls
+    from ..ops import bls381 as dbls
+
+    t0 = monotonic()
+    keys = [bls.key_gen(bytes([i + 1]) * 32) for i in range(n_votes)]
+    pks = [pk for _, pk in keys]
+    if multi:
+        msgs = [bytes([i]) * 32 for i in range(n_votes)]
+        agg = bls.aggregate([bls.sign(sk, m)
+                             for (sk, _), m in zip(keys, msgs)])
+        ok = dbls.verify_aggregate_multi(pks, msgs, agg,
+                                         device=engine.device)
+    else:
+        msg = b"warmup"
+        agg = bls.aggregate([bls.sign(sk, msg) for sk, _ in keys])
+        ok = dbls.verify_aggregate_common(pks, msg, agg,
+                                          device=engine.device)
+    if not ok:
+        raise RuntimeError(f"BLS warm-up verify of {n_votes} votes "
+                           f"(multi={multi}) returned false")
+    log.info("BLS %s warm-up (%d votes) done in %.1fs",
+             "multi-digest" if multi else "aggregate", n_votes,
+             monotonic() - t0)
+
+
+def serve(host: str = "127.0.0.1", port: int = 7100, device=None,
+          warm_bls: bool = False, warm_bls_multi: int = 0):
     """Warm up, then run the sidecar until interrupted; returns the
     closed server."""
     engine = VerifyEngine(device=device)
     try:
         t0 = monotonic()
         warmup(engine)
+        if warm_bls:
+            warmup_bls(engine)
+        if warm_bls_multi:
+            warmup_bls(engine, warm_bls_multi, multi=True)
         log.info("warm-up on %s done in %.1fs", engine.device,
                  monotonic() - t0)
         server = SidecarServer((host, port), engine)
@@ -371,13 +559,21 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the verify programs run (default: the "
                          "card; cpu runs the kernels' plain versions)")
+    ap.add_argument("--warm-bls", action="store_true",
+                    help="also verify one BLS aggregate before listening "
+                         "(scheme=bls deployments)")
+    ap.add_argument("--warm-bls-multi", type=int, default=0, metavar="N",
+                    help="also verify one N-vote multi-digest BLS "
+                         "aggregate (the TC check at quorum size N) "
+                         "before listening")
     ap.add_argument("-v", "--verbose", action="count", default=0)
     args = ap.parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s.%(msecs)03dZ %(levelname)s [%(name)s] %(message)s",
         datefmt="%Y-%m-%dT%H:%M:%S")
-    serve(args.host, args.port, device=args.device)
+    serve(args.host, args.port, device=args.device, warm_bls=args.warm_bls,
+          warm_bls_multi=args.warm_bls_multi)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """hotstuff_tpu_torch's CUDA kernels on the card, each held exactly to its
-plain PyTorch version on the same inputs, and both verify programs on
-the card held to the host reference.
+plain PyTorch version on the same inputs, and the Ed25519 verify
+programs and the BLS12-381 aggregate checks on the card held to the host
+references.
 
 Marked ``gpu``: without a card every test skips (the decision is taken
 in the ``card`` fixture, never at import).  On a machine with one:
@@ -17,9 +18,13 @@ import torch
 
 from hotstuff_tpu_torch.crypto import eddsa as D
 from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
+from hotstuff_tpu_torch.offchain import bls12381 as host
+from hotstuff_tpu_torch.ops import bls381 as B
 from hotstuff_tpu_torch.ops import ed25519 as E
+from hotstuff_tpu_torch.ops import field381 as F381
 from hotstuff_tpu_torch.ops import kern
 from hotstuff_tpu_torch.ops.kern import field_mul as K1
+from hotstuff_tpu_torch.ops.kern import fq12_chain as FC
 from hotstuff_tpu_torch.ops.kern import msm_accum as K3
 from hotstuff_tpu_torch.ops.kern import point_chain as PC
 from hotstuff_tpu_torch.ops.kern import probe as K0
@@ -222,3 +227,96 @@ def test_point_chain_wrappers_reject_bad_inputs_on_card(card):
             call()
     torch.cuda.synchronize()
     assert kern.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The BLS12-381 Fq12 chain kernels (fq12_chain.cu)
+# ---------------------------------------------------------------------------
+
+def _fq12_rows(rows, rng):
+    """(rows, 12, 48) Montgomery Fq12 elements on the CPU: random
+    residues, with one row of all-511 weak limbs (the bound)."""
+    out = np.stack([B.host_fq12_to_mont_limbs(
+        [int.from_bytes(rng.bytes(48), "little") % F381.Q
+         for _ in range(12)]) for _ in range(rows)])
+    out[0, :, :] = 511
+    return torch.from_numpy(out)
+
+
+def _lines(n, tag):
+    """(n, 63, 2, 12, 48) real Miller lines: n - 1 (pk, H(m)) rows and
+    the (-g1, signature) row, from the host reference."""
+    keys = [host.key_gen(bytes([tag, i]) * 16) for i in range(n - 1)]
+    rows = [B.miller_lines(pk, host.hash_to_g2(bytes([i]) * 32))
+            for i, (_, pk) in enumerate(keys)]
+    sig = host.sign(keys[0][0], b"\x00" * 32)
+    rows.append(B.miller_lines(host.g1_neg(host.g1_generator()), sig))
+    return torch.from_numpy(np.stack(rows))
+
+
+@pytest.mark.parametrize("rows", [1, 7, 68])
+def test_fq12_mul_equals_plain_on_card(card, rows):
+    rng = np.random.default_rng(rows)
+    x, y = _fq12_rows(rows, rng).to(card), _fq12_rows(rows, rng).to(card)
+    got = _launched("fq12_mul", lambda: FC.fq12_mul(x, y))
+    assert torch.equal(got, FC.fq12_mul_plain(x, y))
+    got = _launched("fq12_mul", lambda: FC.fq12_mul(x, x))
+    assert torch.equal(got, FC.fq12_mul_plain(x, x))
+
+
+@pytest.mark.parametrize("rows", [2, 5])
+def test_miller_accumulate_equals_plain_on_card(card, rows):
+    lines = _lines(rows, rows).to(card)
+    got = _launched("miller_accumulate", lambda: FC.miller_accumulate(lines))
+    assert torch.equal(got, FC.miller_accumulate_plain(lines))
+
+
+@pytest.mark.parametrize("rows,exponent", [(1, "hard"), (3, 0), (3, 77777)])
+def test_fq12_pow_equals_plain_on_card(card, rows, exponent):
+    e = B._HARD_EXP if exponent == "hard" else exponent
+    x = _fq12_rows(rows, np.random.default_rng(rows)).to(card)
+    got = _launched("fq12_pow", lambda: FC.fq12_pow(x, e))
+    assert torch.equal(got, FC.fq12_pow_plain(x, e))
+
+
+@pytest.mark.parametrize("rows", [1, 33])
+def test_fq_pow_equals_plain_on_card(card, rows):
+    x = _fq12_rows(rows, np.random.default_rng(rows))[:, 0].contiguous()
+    x[-1] = 0                                     # inv(0) = 0
+    x = x.to(card)
+    got = _launched("fq_pow", lambda: FC.fq_pow(x, F381.Q - 2))
+    assert torch.equal(got, FC.fq_pow_plain(x, F381.Q - 2))
+
+
+def test_fq12_chain_wrappers_reject_bad_inputs_on_card(card):
+    x = _fq12_rows(2, np.random.default_rng(0)).to(card)
+    lines = torch.zeros((2, 3, 2, 12, 48), dtype=torch.int32, device=card)
+    before = dict(kern.LAUNCHES)
+    bad = [lambda: FC.fq12_mul(x, x[:1]),
+           lambda: FC.fq12_mul(x.long(), x.long()),
+           lambda: FC.fq12_mul(x.transpose(0, 1), x.transpose(0, 1)),
+           lambda: FC.miller_accumulate(lines[:, :, 0]),
+           lambda: FC.fq12_pow(x[:, :6].contiguous(), 5),
+           lambda: FC.fq12_pow(x, -1),
+           lambda: FC.fq_pow(x[:, :, :47].contiguous(), 5)]
+    for call in bad:
+        with pytest.raises((TypeError, ValueError)):
+            call()
+    torch.cuda.synchronize()
+    assert kern.LAUNCHES == before
+
+
+def test_bls_aggregate_checks_on_card_match_host(card):
+    keys = [host.key_gen(bytes([7, i]) * 16) for i in range(4)]
+    pks = [pk for _, pk in keys]
+    msg = b"\x11" * 32
+    agg = host.aggregate([host.sign(sk, msg) for sk, _ in keys])
+    forged = host.aggregate([host.sign(sk, msg) for sk, _ in keys[:3]]
+                            + [host.sign(keys[3][0], b"other")])
+    for sig in (agg, forged):
+        assert B.verify_aggregate_common(pks, msg, sig, device=card) == \
+            host.verify_aggregate_common(pks, msg, sig)
+    msgs = [bytes([i]) * 32 for i in range(4)]
+    agg_m = host.aggregate([host.sign(sk, m) for (sk, _), m in zip(keys, msgs)])
+    assert B.verify_aggregate_multi(pks, msgs, agg_m, device=card)
+    assert not B.verify_aggregate_multi(pks, msgs[::-1], agg_m, device=card)

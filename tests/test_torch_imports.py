@@ -62,6 +62,9 @@ def test_no_module_imports_jax_or_the_jax_package():
     mods = _port_modules()
     assert "hotstuff_tpu_torch.sidecar.service" in mods
     assert "hotstuff_tpu_torch.ops.kern.msm_accum" in mods
+    for name in ("offchain.bls12381", "ops.field381", "ops.bls381",
+                 "ops.kern.fq12_chain"):
+        assert f"hotstuff_tpu_torch.{name}" in mods
     proc = _run(_CHECK.format(repo=REPO, mods=mods))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["ok", str(len(mods))]
@@ -72,14 +75,20 @@ import sys
 sys.path.insert(0, {repo!r})
 import torch
 from hotstuff_tpu_torch.crypto import eddsa, ref_ed25519 as ref
+from hotstuff_tpu_torch.offchain import bls12381 as bls
+from hotstuff_tpu_torch.ops import bls381
 from hotstuff_tpu_torch.sidecar.service import VerifyEngine
 assert not torch.cuda.is_available()
 sk, pk = ref.generate_keypair(b"\x07" * 32)
 sig = ref.sign(sk, b"m")
+bsk, bpk = bls.key_gen(b"\x07" * 32)
+bsig = bls.sign(bsk, b"m")
 calls = [
     lambda: eddsa.verify_batch([b"m"], [pk], [sig]),
     lambda: eddsa.verify_batch_rlc([b"m"] * 4, [pk] * 4, [sig] * 4),
     lambda: eddsa.verify(pk, b"m", sig),
+    lambda: bls381.verify_aggregate_common([bpk], b"m", bsig),
+    lambda: bls381.verify_aggregate_multi([bpk], [b"m"], bsig),
     lambda: VerifyEngine(),
 ]
 for call in calls:

@@ -76,7 +76,9 @@ def test_ping_verify_bulk_and_stats(sidecar):
     assert set(stats["kernels"]) == {"probe", "field_mul", "scalar_mont_mul",
                                      "msm_window_accum", "point_ladder",
                                      "decompress", "point_multiples",
-                                     "rlc_scalars", "rlc_reduce"}
+                                     "rlc_scalars", "rlc_reduce",
+                                     "fq12_mul", "miller_accumulate",
+                                     "fq12_pow", "fq_pow"}
 
 
 def test_full_queue_answers_busy(sidecar, monkeypatch):
