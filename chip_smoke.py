@@ -5,7 +5,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, in order; any failure ends the run with a non-zero exit:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from ops/kern/csrc with nvcc;
+  2. build the CUDA kernels from ops/kern/csrc with nvcc (and, beside
+     them, a program of phase 7 that times the word tower's pieces);
   3. launch the probe kernel K0 and check x + 1;
   4. run K1, K2, K3 (at the bulk batch's 2048 MSM points and the QC's
      256), the three point-chain kernels (point_ladder as the
@@ -31,12 +32,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
      stages, the card's busy time from torch.profiler, and the
      operators each function dispatches (the RLC calls must dispatch
      none from scalar25519, whose work the scalar_rlc kernels do);
-  7. the BLS12-381 path: the four Fq12 chain kernels (fq12_mul at 1 and
-     68 rows, miller_accumulate at 2 and 68 pairings of real Miller
-     lines, fq12_pow with the final exponentiation's hard exponent,
+  7. the BLS12-381 path: the Fq12 kernels (fq12_mul at 1 and 68 rows;
+     the word-tower kernels of fq12_tower.cu: miller_accumulate at 2 and
+     68 pairings of real Miller lines and on a dense random line and a
+     row of lines equal to one, fq12_hard_pow on an easy-part output;
+     fq12_pow with the final exponentiation's hard exponent, off the
+     path since fq12_hard_pow took its work, kept as the "before" row;
      fq_pow with q - 2) beside their plain versions, exact, timed as in
      phase 4, with their int32 bounds on the card and on one SM (the
-     chain bound); then, on a 100-key BLS committee, the port's sidecar
+     chain bound), each counted on the algorithm its kernel runs; the
+     tower's pieces alone (one Montgomery product of fq381w.cuh, each
+     bilinear record of fq12w.cuh on one block); then,
+     on a 100-key BLS committee, the port's sidecar
      serves a QC of 67 votes (OP_BLS_VERIFY_VOTES), the QC with one
      vote over another digest, the QC with a signature that is no
      curve point, OP_BLS_VERIFY_AGG over the 67 keys, a TC of 67 votes
@@ -44,8 +51,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the QC; every verdict must equal the port's host reference
      (offchain/bls12381.py), the signature its host signer's bytes, the
      repeat must come from the verdict cache, and every pairing check
-     must launch the Fq12 kernels (launches counted over these requests
-     and per request); each request's latency is split into the
+     must launch the Fq12 kernels of its path (fq12_mul,
+     miller_accumulate, fq12_hard_pow, fq_pow) and never fq12_pow
+     (launches counted over these requests and per request); each
+     request's latency is split into the
      device's check and the rest (host preparation: decoding,
      aggregation, the subgroup test, hash-to-G2, the Miller lines, the
      copy);
@@ -135,6 +144,22 @@ OPS_SUB_381 = 2 * 48 + 3 * 2 * 48
 OPS_FQ12_MUL = (144 * OPS_MONT_381 + 144 * 48 + 35 * OPS_REDUCE_SUM_381
                 + 11 * (2 * OPS_ADD_381 + OPS_SUB_381))
 FQ12_BYTES = 12 * 48 * 4
+
+# The word tower (fq12_tower.cu on fq381w.cuh, fq12w.cuh), counted per
+# 32-bit word: an IMAD.WIDE (32 x 32 -> 64 bits, or a 64-bit
+# multiply-add) as two int32 operations, a 64-bit add as two, a word
+# add or subtract with its carry or borrow as three.  A Montgomery
+# product (CIOS) is 2 x 144 IMAD.WIDE, each with a 64-bit add of the
+# running carry, the per-row top-word updates, and reduce13 (the
+# quotient estimate, a 12-word multiply-subtract and one conditional
+# subtraction).  A sum term adds one word column per word (an
+# IMAD.WIDE by its coefficient); a negative term first forms q - v.
+OPS_W_REDUCE = 2 + 12 * (2 + 3) + 12 * 4
+OPS_W_MONT = 2 * 144 * (2 + 2) + 12 * 12 + OPS_W_REDUCE
+OPS_W_TERM = 12 * 2
+OPS_W_NEG = 12 * 3
+OPS_W_CARRY = 12 * 3
+OPS_W_CONVERT = 2 * 48 + 12 * 3 + OPS_W_REDUCE   # limbs <-> words, per Fq
 # One SM's int32 rate: the least time of a dependent chain that one
 # block (one SM) runs, whatever its layout inside the SM.
 PEAK_SM_INT32_OPS_PER_S = 64 * 1.98e9
@@ -565,9 +590,9 @@ def sidecar_phase(dev, reqs, want):
     if not boot["probe"]:
         fail("the sidecar's boot did not launch the probe kernel")
     for name, count in launches.items():
-        if name not in OFF_PATH + BLS_KERNELS and count == 0:
+        if name not in OFF_PATH + BLS_KERNELS + BLS_OFF_PATH and count == 0:
             fail(f"kernel {name} was not launched by the requests")
-    for name in BLS_KERNELS:
+    for name in BLS_KERNELS + BLS_OFF_PATH:
         if launches[name]:
             fail(f"the Ed25519 requests launched the BLS kernel {name}")
     if launches["scalar_mont_mul"]:
@@ -690,19 +715,223 @@ def profile_phase(dev, reqs, want) -> None:
 # Phase 7-8: the BLS12-381 path
 # ---------------------------------------------------------------------------
 
-BLS_KERNELS = ("fq12_mul", "miller_accumulate", "fq12_pow", "fq_pow")
+# The kernels every pairing check launches, and the one it must not.
+BLS_KERNELS = ("fq12_mul", "miller_accumulate", "fq12_hard_pow", "fq_pow")
+BLS_OFF_PATH = ("fq12_pow",)
 BLS_SOURCE = "hotstuff_tpu_torch/ops/kern/csrc/fq12_chain.cu"
+TOWER_SOURCE = "hotstuff_tpu_torch/ops/kern/csrc/fq12_tower.cu"
 # No TPU kernel: the JAX package runs the whole check as one XLA program.
 BLS_REPLACES = "hotstuff_tpu/ops/bls381.py:217"
 QC_LABEL = "QC of 67 votes"
 TC_LABEL = "TC of 67 votes over 67 digests"
 
 
+# The tower's pieces timed alone (phase 7): one Montgomery product of
+# fq381w.cuh as one thread's dependent chain, and each record of
+# fq12w.cuh's bilinear step on one block of the kernels' 160 threads,
+# each N times in a loop inside one launch, timed with CUDA events.  A
+# program of its own on the kernels' headers, built by nvcc in phase 2
+# beside the kernel library.
+TOWER_PROG_CAPACITY = 4096
+TOWER_PIECES_SOURCE = r"""
+#include <cstdio>
+#include <vector>
+#include <cuda_runtime.h>
+#include "fq12w.cuh"
+
+__global__ void mont_loop(uint32_t* out, int n) {
+  uint32_t a[12], b[12];
+  for (int i = 0; i < 12; ++i) {
+    a[i] = fqw::kOne[i] ^ threadIdx.x;
+    b[i] = fqw::kOne[i] + i;
+  }
+  a[11] &= 0x0fffffff;
+  b[11] &= 0x0fffffff;
+  for (int r = 0; r < n; ++r) fqw::mont_mul(a, b, a);
+  for (int i = 0; i < 12; ++i) out[threadIdx.x * 12 + i] = a[i];
+}
+
+template <int Op>
+__global__ void bilinear_loop(const int* prog, int len, int n,
+                              uint32_t* out) {
+  __shared__ __align__(16) uint32_t x[144], y[144], w[tw::kScratchWords];
+  __shared__ uint64_t cols[144];
+  __shared__ int sp[TOWER_PROG_CAPACITY];
+  tw::tasks(len, [&](int i) { sp[i] = prog[i]; });
+  const tw::Scratch s = tw::make_scratch(w, cols);
+  tw::tasks(144, [&](int i) {
+    x[i] = fqw::kOne[i % 12] >> (i % 3);
+    y[i] = fqw::kOne[i % 12] >> (i % 5);
+  });
+  for (int r = 0; r < n; ++r) tw::bilinear<Op>(sp, x, y, x, s);
+  tw::tasks(144, [&](int i) { out[i] = x[i]; });
+}
+
+int main(int argc, char** argv) {
+  std::vector<int> prog;
+  for (int i = 1; i < argc; ++i) prog.push_back(atoi(argv[i]));
+  int* dprog;
+  uint32_t* dout;
+  cudaMalloc(&dprog, prog.size() * 4);
+  cudaMemcpy(dprog, prog.data(), prog.size() * 4, cudaMemcpyHostToDevice);
+  cudaMalloc(&dout, 1 << 16);
+  cudaEvent_t s, e;
+  cudaEventCreate(&s);
+  cudaEventCreate(&e);
+  const int n = 400;
+  float ms;
+  mont_loop<<<1, 64>>>(dout, n);
+  cudaEventRecord(s);
+  mont_loop<<<1, 64>>>(dout, n);
+  cudaEventRecord(e);
+  cudaEventSynchronize(e);
+  cudaEventElapsedTime(&ms, s, e);
+  printf("mont_mul (one thread's chain): %.6f us\n", ms * 1e3 / n);
+  void (*loops[5])(const int*, int, int, uint32_t*) = {
+      bilinear_loop<0>, bilinear_loop<1>, bilinear_loop<2>, bilinear_loop<3>,
+      bilinear_loop<4>};
+  const char* names[5] = {"mul", "sqr", "line", "frob1", "frob2"};
+  const int len = static_cast<int>(prog.size());
+  for (int op = 0; op < 5; ++op) {
+    loops[op]<<<1, 160>>>(dprog, len, n, dout);
+    cudaEventRecord(s);
+    loops[op]<<<1, 160>>>(dprog, len, n, dout);
+    cudaEventRecord(e);
+    cudaEventSynchronize(e);
+    cudaEventElapsedTime(&ms, s, e);
+    printf("bilinear %s: %.6f us\n", names[op], ms * 1e3 / n);
+  }
+  const cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) {
+    printf("CUDA error: %s\n", cudaGetErrorString(err));
+    return 1;
+  }
+  return 0;
+}
+"""
+
+
+def start_tower_pieces_build():
+    """Start nvcc on the tower pieces' program; returns (process, path
+    of the executable).  The process is killed at exit if still running."""
+    import atexit
+
+    from hotstuff_tpu_torch.ops.kern import build
+
+    work = build.BUILD_ROOT / "tower_pieces"
+    work.mkdir(parents=True, exist_ok=True)
+    src = work / "tower_pieces.cu"
+    src.write_text(TOWER_PIECES_SOURCE)
+    exe = work / "tower_pieces"
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    proc = subprocess.Popen(
+        [build.nvcc(), *flags, f"-DTOWER_PROG_CAPACITY={TOWER_PROG_CAPACITY}",
+         f"-I{build.CSRC}", str(src), "-o", str(exe)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, exe
+
+
+def tower_pieces_phase(proc, exe) -> dict:
+    """Phase 7: run the tower pieces' program; returns us per piece."""
+    from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
+
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        fail(f"nvcc failed on the tower pieces' program:\n{out}")
+    if FT.PROGRAM.size > TOWER_PROG_CAPACITY:
+        fail(f"the tower table ({FT.PROGRAM.size} ints) exceeds "
+             f"{TOWER_PROG_CAPACITY}")
+    run = subprocess.run([str(exe), *map(str, FT.PROGRAM.tolist())],
+                         capture_output=True, text=True, timeout=300)
+    if run.returncode != 0:
+        fail(f"the tower pieces' program failed:\n{run.stdout}{run.stderr}")
+    times = {}
+    for line in run.stdout.splitlines():
+        name, us = line.rsplit(":", 1)
+        times[name] = float(us.split()[0])
+        print(f"tower piece, {line}", flush=True)
+    return times
+
+
+def ops_bilinear(op) -> int:
+    """int32 operations of one tower product (fq12w.cuh bilinear) from
+    its matrices: per Fq product, two operand sums and the Montgomery
+    product; per output, its sum and one reduce13."""
+    import numpy as np
+
+    ops = 0
+    for m in (op.ma, op.mb):
+        ops += (int((m != 0).sum()) * OPS_W_TERM
+                + int((m < 0).sum()) * OPS_W_NEG
+                + m.shape[0] * OPS_W_CARRY)
+    ops += op.products * (OPS_W_MONT + OPS_W_NEG)
+    ops += int(np.count_nonzero(op.mc)) * OPS_W_TERM + 12 * (
+        OPS_W_CARRY + OPS_W_REDUCE)
+    return ops
+
+
+def ops_sqr(cyclotomic: bool) -> int:
+    """One squaring of the tower: the kernel's complex square (36 Fq
+    products), or, for the bound of the cyclotomic squaring that the
+    hard part's input allows (Granger and Scott, 18 Fq products), the
+    same record's count with 18 of its products taken out (its sums
+    kept)."""
+    from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
+
+    sqr = ops_bilinear(FT.OPS["sqr"])
+    return sqr - 18 * (OPS_W_MONT + OPS_W_NEG) if cyclotomic else sqr
+
+
+def ops_tower_pow(digits, width, cyclotomic=False) -> int:
+    """pow_digits: the table's 2^width - 2 products, width squarings
+    per later digit, one product per later nonzero digit."""
+    from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
+
+    mul = ops_bilinear(FT.OPS["mul"])
+    later = digits[1:]
+    return (((1 << width) - 2 + sum(1 for d in later if d)) * mul
+            + width * len(later) * ops_sqr(cyclotomic))
+
+
+def ops_hard_pow(cyclotomic=False) -> int:
+    """fq12_hard_pow on one row: the x-chain of fq12w.cuh hard_pow_row,
+    its squarings counted as the kernel runs them (complex squares) or,
+    with ``cyclotomic``, as cyclotomic squares: the function's count on
+    its domain, which the kernel does not reach yet."""
+    from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
+
+    conj = 6 * OPS_W_NEG
+    return (ops_tower_pow(FT.E1_DIGITS, FT.E1_WIDTH, cyclotomic)
+            + 3 * ops_tower_pow(FT.X_DIGITS, 1, cyclotomic)
+            + ops_bilinear(FT.OPS["frob1"]) + ops_bilinear(FT.OPS["frob2"])
+            + 4 * ops_bilinear(FT.OPS["mul"]) + 2 * conj
+            + 24 * OPS_W_CONVERT)
+
+
+def ops_miller_rows(lines) -> tuple:
+    """miller_accumulate on these lines: (operations of all rows, of the
+    heaviest row), counted on the branches the data take (a line equal
+    to one skipped, a sparse one by the 42-product record, any other by
+    the 54-product one), with every line's conversion to the tower."""
+    from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
+
+    rows, steps = lines.shape[:2]
+    one, sparse = FT.line_branches(FT.flat_to_tower_plain(lines))
+    n_sparse = (~one & sparse).sum(dim=(1, 2))
+    n_dense = (~one & ~sparse).sum(dim=(1, 2))
+    per_row = (steps * ops_bilinear(FT.OPS["sqr"])
+               + n_sparse * ops_bilinear(FT.OPS["line"])
+               + n_dense * ops_bilinear(FT.OPS["mul"])
+               + (2 * steps + 1) * 12 * OPS_W_CONVERT)
+    return int(per_row.sum()), int(per_row.max())
+
+
 def bls_kernel_phase(dev, rng):
-    """Phase 7, first half: each Fq12 chain kernel beside its plain
-    version at the BLS path's shapes, exact.  The plain versions are
-    thousands of operators (seconds on the card), so each is timed once,
-    by the call that the kernel is compared with."""
+    """Phase 7, first half: each Fq12 kernel beside its plain version at
+    the BLS path's shapes, exact.  The plain versions are thousands of
+    operators (seconds on the card), so each is timed once, by the call
+    that the kernel is compared with."""
     import numpy as np
     import torch
 
@@ -710,6 +939,7 @@ def bls_kernel_phase(dev, rng):
     from hotstuff_tpu_torch.ops import bls381 as B
     from hotstuff_tpu_torch.ops import field381 as F381
     from hotstuff_tpu_torch.ops.kern import fq12_chain as FC
+    from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
 
     rows = []
 
@@ -745,9 +975,9 @@ def bls_kernel_phase(dev, rng):
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     chain_bound_ms=chain_ms)
 
-    def record(name, shape, *args):
+    def record(name, source, shape, *args):
         rows.append(dict(name=name, route="cuda", shape=shape,
-                         source=BLS_SOURCE, replaces=BLS_REPLACES,
+                         source=source, replaces=BLS_REPLACES,
                          library_ms=None, **measure(name, shape, *args)))
 
     # fq12_mul at the TC's 68 rows and at batch 1 (the products outside
@@ -757,37 +987,75 @@ def bls_kernel_phase(dev, rng):
         args = (f"({n}, 12, 48)", FC.fq12_mul, FC.fq12_mul_plain, (x, y),
                 3 * n * FQ12_BYTES, n * OPS_FQ12_MUL, OPS_FQ12_MUL, 50)
         if n == 68:
-            record("fq12_mul", *args)
+            record("fq12_mul", BLS_SOURCE, *args)
         else:
             rows[-1].update({f"batch1_{k}": v for k, v in
                              measure("fq12_mul", *args).items()})
 
-    # miller_accumulate at the QC's 2 pairings and the TC's 68: real
-    # Miller lines (three (pk, H(m)) rows and the (-g1, signature) row,
-    # tiled to 68).
+    # miller_accumulate (the word tower) at the QC's 2 pairings and the
+    # TC's 68: real Miller lines (three (pk, H(m)) rows and the (-g1,
+    # signature) row, tiled to 68).
     keys = [bls.key_gen(bytes([200, i]) * 16) for i in range(3)]
     msgs = [bytes([i]) * 32 for i in range(3)]
     sig = bls.aggregate([bls.sign(sk, m) for (sk, _), m in zip(keys, msgs)])
     real = B.multi_pairing_rows([pk for _, pk in keys], msgs, sig)
     lines4 = torch.from_numpy(np.stack(real)).to(dev)
     steps = lines4.shape[1]
+    prog_bytes = FT.PROGRAM.size * 4
     for n in (2, 68):
         lines = lines4.repeat(n // 4 + 1, 1, 1, 1, 1)[-n:].contiguous()
-        args = (f"({n}, {steps}, 2, 12, 48)", FC.miller_accumulate,
-                FC.miller_accumulate_plain, (lines,),
-                lines.numel() * 4 + n * FQ12_BYTES,
-                n * steps * 3 * OPS_FQ12_MUL, steps * 3 * OPS_FQ12_MUL, 10)
+        ops, chain = ops_miller_rows(lines)
+        args = (f"({n}, {steps}, 2, 12, 48)", FT.miller_accumulate,
+                FT.miller_accumulate_plain, (lines,),
+                lines.numel() * 4 + n * FQ12_BYTES + prog_bytes,
+                ops, chain, 10)
         if n == 2:
-            record("miller_accumulate", *args)
+            record("miller_accumulate", TOWER_SOURCE, *args)
         else:
             rows[-1].update({f"tc68_{k}": v for k, v in
                              measure("miller_accumulate", *args).items()})
+    # Its other two branches: a dense random line (row 0, a slot that
+    # holds one on real lines) and a row of lines all equal to one.
+    lines = lines4[:2].clone()
+    lines[0, 9, 1] = fq12(1)[0]
+    lines[1] = B.fq12_one((steps, 2), dev)
+    before = dict(FT.BRANCHES)
+    err = max_abs_err(FT.miller_accumulate(lines),
+                      FT.miller_accumulate_plain(lines))
+    taken = {k: FT.BRANCHES[k] - before[k] for k in before}
+    if err != 0 or not taken["dense"] or not taken["skip"]:
+        fail(f"miller_accumulate on a dense line and a row of ones: max "
+             f"abs err {err}, branches {taken}")
+    print(f"miller_accumulate on a dense line and a row of lines equal to "
+          f"one: exact; branches of the plain version {taken}", flush=True)
 
-    # fq12_pow with the hard exponent at batch 1 (the check's shape).
+    # fq12_hard_pow at batch 1 (the check's shape) on an easy-part output
+    # f^((q^6 - 1)(q^2 + 1)), its domain (the cyclotomic subgroup).
+    f = fq12(1)
+    f1 = B.fq12_mul(B.fq12_frobenius(f, 6), B.fq12_inv(f))
+    f2 = B.fq12_mul(B.fq12_frobenius(f1, 2), f1).contiguous()
+    hard = ops_hard_pow()
+    record("fq12_hard_pow", TOWER_SOURCE,
+           "(1, 12, 48), an easy-part output", FT.fq12_hard_pow,
+           FT.fq12_hard_pow_plain, (f2,),
+           2 * FQ12_BYTES + prog_bytes + 24 * 48
+           + 4 * (len(FT.E1_DIGITS) + len(FT.X_DIGITS)),
+           hard, hard, 10)
+    cyc = ops_hard_pow(cyclotomic=True)
+    rows[-1]["cyclotomic_bound_ms"] = cyc / PEAK_INT32_OPS_PER_S * 1e3
+    rows[-1]["cyclotomic_chain_bound_ms"] = (
+        cyc / PEAK_SM_INT32_OPS_PER_S * 1e3)
+    print(f"fq12_hard_pow with cyclotomic squares (18 Fq products each, "
+          f"not the kernel's algorithm): bound "
+          f"{rows[-1]['cyclotomic_bound_ms']:.6f} ms, chain bound on one "
+          f"SM {rows[-1]['cyclotomic_chain_bound_ms']:.6f} ms", flush=True)
+
+    # fq12_pow with the hard exponent at batch 1: off the check's path
+    # since fq12_hard_pow took the hard part; kept as the "before" row.
     e = B._HARD_EXP
     nd = len(F381.exponent_digits(e))
     chain = (14 + 5 * nd) * OPS_FQ12_MUL
-    record("fq12_pow", "(1, 12, 48), e = (q^4 - q^2 + 1) / r",
+    record("fq12_pow", BLS_SOURCE, "(1, 12, 48), e = (q^4 - q^2 + 1) / r",
            FC.fq12_pow, FC.fq12_pow_plain, (fq12(1), e),
            2 * FQ12_BYTES + nd * 4, chain, chain, 5)
 
@@ -797,8 +1065,8 @@ def bls_kernel_phase(dev, rng):
     nd = len(F381.exponent_digits(e))
     chain = (14 + 5 * nd) * OPS_MONT_381
     x = fq12(1)[:, 0].contiguous()
-    record("fq_pow", "(1, 48), e = q - 2", FC.fq_pow, FC.fq_pow_plain,
-           (x, e), 2 * 48 * 4 + nd * 4, chain, chain, 20)
+    record("fq_pow", BLS_SOURCE, "(1, 48), e = q - 2", FC.fq_pow,
+           FC.fq_pow_plain, (x, e), 2 * 48 * 4 + nd * 4, chain, chain, 20)
     high = x.repeat(2, 1)
     high[1, -1] = FC.STABLE_TOP + 100
     err = max_abs_err(FC.fq_pow(high, e), FC.fq_pow_plain(high, e))
@@ -943,7 +1211,10 @@ def bls_sidecar_phase(dev, reqs, want):
                     if not checked or any(not delta.get(k)
                                           for k in BLS_KERNELS):
                         fail(f"BLS {label}: the check did not launch every "
-                             f"Fq12 kernel ({delta})")
+                             f"Fq12 kernel of its path ({delta})")
+                    if any(delta.get(k) for k in BLS_OFF_PATH):
+                        fail(f"BLS {label}: the check launched a kernel "
+                             f"off its path ({delta})")
                 elif checked or delta:
                     fail(f"BLS {label}: ran a pairing check or launched "
                          f"kernels ({delta})")
@@ -961,7 +1232,8 @@ def bls_sidecar_phase(dev, reqs, want):
         if not launches[name]:
             fail(f"kernel {name} was not launched by the BLS requests")
     print(f"kernel launches over the BLS requests: "
-          f"{ {k: launches[k] for k in BLS_KERNELS} }", flush=True)
+          f"{ {k: launches[k] for k in BLS_KERNELS + BLS_OFF_PATH} }",
+          flush=True)
     return launches, per_request, kept
 
 
@@ -1060,6 +1332,7 @@ def main() -> int:
     from hotstuff_tpu_torch.ops.kern import build
 
     t0 = time.monotonic()
+    pieces_build = start_tower_pieces_build()
     build.load()
     print(f"kernel build and load: {time.monotonic() - t0:.3f} s "
           f"(nvcc wall {build.build_seconds})", flush=True)
@@ -1096,6 +1369,10 @@ def main() -> int:
     # Phases 7-8: the BLS12-381 path.
     t_bls = time.monotonic()
     bls_rows = bls_kernel_phase(dev, rng)
+    pieces = tower_pieces_phase(*pieces_build)
+    for row in bls_rows:
+        if row["name"] == "fq12_hard_pow":
+            row["tower_pieces_us"] = pieces
     t0 = time.monotonic()
     bls_reqs, bls_want = make_bls_requests()
     print(f"BLS committee keys, 135 signatures and the host reference "

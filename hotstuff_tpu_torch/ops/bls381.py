@@ -6,8 +6,10 @@ Work split (the reference's host/device boundary):
   validation, hash-to-G2, public-key aggregation, and the Miller loop's
   line values (``miller_lines``).
 * DEVICE: the Miller accumulation f <- f^2 l_i over the 63 BLS_X bits
-  and the ~1,600-multiplication final exponentiation, as batched Fq12
-  arithmetic on the Montgomery field of field381.py.
+  and the final exponentiation, as batched Fq12 arithmetic on the
+  Montgomery field of field381.py; the two long chains (the Miller
+  accumulation and the hard part) on the Fq12 tower over 32-bit words
+  (ops/kern/fq12_tower.py), whose outputs are canonical limbs.
 
 An Fq12 element is a (..., 12, 48) int32 tensor: a flat degree-12
 polynomial over Fq (modulus w^12 - 2w^6 + 2, as in the host reference)
@@ -15,9 +17,10 @@ with Montgomery-form coefficient limbs.  Frobenius maps are precomputed
 12x12 Fq matrices.
 
 Routing follows the tensors: on a CUDA tensor ``fq12_mul``,
-``miller_accumulate``, ``fq12_pow_const`` and field381.inv launch the
-kernels of ops/kern/fq12_chain.py; on a CPU tensor they run those
-kernels' plain versions.  The few operators around them (13 Frobenius
+``fq12_pow_const`` and field381.inv launch the kernels of
+ops/kern/fq12_chain.py, ``miller_accumulate`` and the hard part of
+``final_exponentiate`` those of ops/kern/fq12_tower.py; on a CPU tensor
+they run those kernels' plain versions.  The few operators around them (13 Frobenius
 maps per check, 11 of them in one batch, fq12_inv's last Fq product,
 ``is_one``) are plain PyTorch operators on either device, as the JAX
 package computes them with jnp.  There is no fallback: a kernel that
@@ -31,6 +34,7 @@ import torch
 
 from . import field381 as F
 from .kern import fq12_chain as K
+from .kern import fq12_tower as T
 from ..offchain import bls12381 as host
 from ..utils.device import resolve
 
@@ -107,6 +111,7 @@ _FROB = _frob_matrices()
 _HARD_EXP = (Q ** 4 - Q ** 2 + 1) // host.R
 assert (Q ** 12 - 1) % host.R == 0
 assert (Q ** 6 - 1) * (Q ** 2 + 1) * _HARD_EXP == (Q ** 12 - 1) // host.R
+assert _HARD_EXP == T.HARD_EXP
 
 
 # ---------------------------------------------------------------------------
@@ -178,18 +183,23 @@ def fq12_pow_const(x: torch.Tensor, exponent: int) -> torch.Tensor:
 
 def miller_accumulate(lines: torch.Tensor) -> torch.Tensor:
     """lines (..., N_STEPS, 2, 12, 48) -> Miller value (without the BLS_X
-    sign conjugation -- it cancels in the == 1 check after final exp)."""
+    sign conjugation -- it cancels in the == 1 check after final exp), in
+    canonical limbs (fq12_tower.miller_accumulate: the kernel on the
+    card)."""
     lead = lines.shape[:-4]
     flat = lines.reshape(-1, *lines.shape[-4:]).contiguous()
-    return K.miller_accumulate(flat).reshape(*lead, 12, F.NLIMBS)
+    return T.miller_accumulate(flat).reshape(*lead, 12, F.NLIMBS)
 
 
 def final_exponentiate(f: torch.Tensor) -> torch.Tensor:
     """f^((q^12-1)/r): easy part via Frobenius + norm-inversion, hard part
-    as one windowed exponentiation by (q^4 - q^2 + 1)/r."""
+    f2^((q^4 - q^2 + 1)/r) as the exact chain in x of
+    fq12_tower.fq12_hard_pow (the kernel on the card; f2 is in the
+    cyclotomic subgroup, where that chain is the power).  The result is
+    in canonical limbs."""
     f1 = fq12_mul(fq12_frobenius(f, 6), fq12_inv(f))      # f^(q^6 - 1)
     f2 = fq12_mul(fq12_frobenius(f1, 2), f1)              # ^(q^2 + 1)
-    return fq12_pow_const(f2, _HARD_EXP)
+    return _rows(T.fq12_hard_pow, f2)
 
 
 def is_one(f: torch.Tensor) -> torch.Tensor:

@@ -232,6 +232,17 @@ def from_mont(a: torch.Tensor) -> torch.Tensor:
     return _cond_sub_q(_ripple(x))
 
 
+def canonical(a: torch.Tensor) -> torch.Tensor:
+    """Nonnegative limbs (each below 2^16, so the schoolbooks stay exact
+    in int32) -> the canonical limbs of the same residue: each limb below
+    256, the value in [0, q).  A Montgomery form stays a Montgomery form
+    of the same element; this is the representative the word kernels
+    (ops/kern/fq12_tower.py) return.  mont_mul by R^2 mod q gives a R mod
+    q below ~2.5 R for any such input, and from_mont's REDC by 1 then
+    takes it back to a mod q, ripple and one conditional subtraction."""
+    return from_mont(mont_mul(a, cached("r2", _R2_LIMBS, a.device)))
+
+
 def _incoming(gen: torch.Tensor, prop: torch.Tensor) -> torch.Tensor:
     """Carry-lookahead: (..., n) bool generate / propagate flags per limb
     -> (..., n) int32 carry into each limb.  The carry into limb i is the

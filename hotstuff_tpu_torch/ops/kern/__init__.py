@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the verify hot paths, and their routing.
 
-Thirteen kernels, each in ``csrc/`` with a Python wrapper and a plain
+Fourteen kernels, each in ``csrc/`` with a Python wrapper and a plain
 PyTorch version of the same function beside it:
 
   probe             x + 1, the toolchain and launch check (probe.py)
@@ -14,10 +14,14 @@ PyTorch version of the same function beside it:
   rlc_scalars       K2 redesigned: the RLC program's scalar work mod L
   rlc_reduce          in one launch each (scalar_rlc.py): the products,
                       lifts and digits per row; the limb-sum reduction
-  fq12_mul          the BLS12-381 pairing check's Fq12 chains
-  miller_accumulate   (fq12_chain.py, no TPU kernel behind them): one
-  fq12_pow            Fq12 product, the whole Miller accumulation, the
-  fq_pow              windowed exponentiations over Fq12 and over Fq
+  fq12_mul          the BLS12-381 pairing check's flat Fq12 chains
+  fq12_pow            (fq12_chain.py, no TPU kernel behind them): one
+  fq_pow              Fq12 product, the windowed exponentiations over
+                      Fq12 and over Fq
+  fq12_hard_pow     the check's long chains on the Fq12 tower over
+  miller_accumulate   32-bit words (fq12_tower.py): the final
+                      exponentiation's hard part as the chain in x, and
+                      the whole Miller accumulation
 
 Routing follows the tensors and nothing else: a CUDA tensor always goes
 through the kernel, a CPU tensor always through the plain version.
@@ -35,7 +39,7 @@ LAUNCHES = {"probe": 0, "field_mul": 0, "scalar_mont_mul": 0,
             "msm_window_accum": 0, "point_ladder": 0, "decompress": 0,
             "point_multiples": 0, "rlc_scalars": 0, "rlc_reduce": 0,
             "fq12_mul": 0, "miller_accumulate": 0, "fq12_pow": 0,
-            "fq_pow": 0}
+            "fq_pow": 0, "fq12_hard_pow": 0}
 
 
 def reset_launches() -> None:

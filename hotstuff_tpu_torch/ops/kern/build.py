@@ -47,9 +47,10 @@ SIGNATURES = {
     "hk_rlc_scalars": [_P, _P, _P, _P, _P, _LL, _P],
     "hk_rlc_reduce": [_P, _P, _LL, _P],
     "hk_fq12_mul": [_P, _P, _P, _LL, _P],
-    "hk_miller_accumulate": [_P, _P, _LL, _I, _P],
+    "hk_miller_accumulate": [_P, _P, _I, _P, _LL, _I, _P],
     "hk_fq12_pow": [_P, _P, _P, _LL, _I, _P],
     "hk_fq_pow": [_P, _P, _P, _LL, _I, _P],
+    "hk_fq12_hard_pow": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _LL, _P],
 }
 
 _lock = threading.Lock()

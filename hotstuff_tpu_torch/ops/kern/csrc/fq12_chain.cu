@@ -8,13 +8,14 @@
 //
 //   fq12_mul           one Fq12 product per row (bls381.fq12_mul): the
 //                      products outside the loops;
-//   miller_accumulate  all S steps of f <- (f^2 l0) l1 from f = 1 for one
-//                      pairing per row (bls381.miller_accumulate);
 //   fq12_pow           x^e over Fq12 by the 4-bit windowed loop of
 //                      field381.pow_windowed (table one, x, x^2, ..., 16
 //                      entries in shared memory; four squarings and one
-//                      table product per digit, digit 0 included): the
-//                      final exponentiation's hard part;
+//                      table product per digit, digit 0 included):
+//                      bls381.fq12_pow_const, off the check's path since
+//                      fq12_tower.cu's fq12_hard_pow took the final
+//                      exponentiation's hard part (which, with the Miller
+//                      accumulation, runs on the word tower there);
 //   fq_pow             the same loop over Fq (field381.inv, e = q - 2),
 //                      on an input first multiplied by the Montgomery one
 //                      when its top limb is kStableTop or more (see
@@ -34,12 +35,13 @@
 // What bounds it: int32 operations.  A Montgomery product is ~5,800
 // multiply-adds and ~2,300 carry operations, so an Fq12 product is ~1.2
 // M int32 operations; an SM retires 64 a clock, so on one SM a product
-// needs >= ~9 us, and the final exponentiation's ~1,600 dependent
-// products >= ~15 ms at batch 1, whatever the layout inside the SM.
+// needs >= ~9 us, and fq12_pow's ~1,600 dependent products at the hard
+// exponent >= ~15 ms at batch 1, whatever the layout inside the SM.
 // This layout keeps 144 threads (4.5 warps) busy for the products, so
 // one of the SM's four schedulers issues two warps' work; the serial
-// reduce and fold pieces add to that.  Splitting a product over more
-// threads, and batch-1 latency in general, is later work.
+// reduce and fold pieces add to that.  fq12_tower.cu cuts the
+// arithmetic itself (32-bit words, the Fq12 tower); moving fq12_mul and
+// fq_pow onto it is later work.
 #include <cuda_runtime.h>
 
 #include "field381.cuh"
@@ -102,26 +104,6 @@ fq12_mul_kernel(const int* __restrict__ x, const int* __restrict__ y,
   __syncthreads();
   fq12_mul_block(sx, sy, sx, Scratch{sprod, scoef});
   copy_block(out + row * kFq12, sx, kFq12);
-}
-
-__global__ void __launch_bounds__(kThreads)
-miller_accumulate_kernel(const int* __restrict__ lines,
-                         int* __restrict__ out, int steps) {
-  __shared__ int sf[kFq12], sl[2 * kFq12], sprod[fq::kProducts * kLimbs],
-      scoef[fq::kDiagonals * kLimbs];
-  const Scratch s{sprod, scoef};
-  const long long row = blockIdx.x;
-  const int* rl = lines + row * steps * 2 * kFq12;
-  one_block(sf);
-#pragma unroll 1
-  for (int step = 0; step < steps; ++step) {
-    copy_block(sl, rl + step * 2 * kFq12, 2 * kFq12);
-    __syncthreads();
-    fq12_mul_block(sf, sf, sf, s);
-    fq12_mul_block(sf, sl, sf, s);
-    fq12_mul_block(sf, sl + kFq12, sf, s);
-  }
-  copy_block(out + row * kFq12, sf, kFq12);
 }
 
 // Dynamic shared memory: the 16-entry table, the accumulator, scratch.
@@ -197,18 +179,6 @@ extern "C" int hk_fq12_mul(const int* x, const int* y, int* out,
   if (rows > 0) {
     fq12_mul_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(x, y, out);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// lines (rows, steps, 2, 12, 48); out (rows, 12, 48).
-extern "C" int hk_miller_accumulate(const int* lines, int* out,
-                                    long long rows, int steps,
-                                    void* stream) {
-  if (rows > 0) {
-    miller_accumulate_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        lines, out, steps);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,122 @@
+// The BLS12-381 check's two long chains on the Fq12 tower of fq12w.cuh,
+// over the 32-bit-word Montgomery field of fq381w.cuh:
+//
+//   fq12_hard_pow      f^((q^4 - q^2 + 1) / r) for f in the cyclotomic
+//                      subgroup (bls381.final_exponentiate's hard part),
+//                      as the exact chain in x = -BLS_X: a 126-bit
+//                      windowed power, three powers by |x|, two Frobenius
+//                      maps and two conjugations (~315 squarings, ~60
+//                      products) where the generic fq12_pow runs 1,604
+//                      flat products;
+//   miller_accumulate  all S steps of f <- f^2 l0 l1 from f = 1 for one
+//                      pairing per row (bls381.miller_accumulate), each
+//                      line skipped when it equals one (58 of a pairing's
+//                      63 addition lines) and taken by the sparse product
+//                      when its zero pattern allows (every real line).
+//
+// No TPU kernel stands behind these: the JAX package runs the whole check
+// as one XLA program (hotstuff_tpu/ops/bls381.py:217 pairings_check_jit).
+// They replace fq12_chain.cu's flat-polynomial versions (fq12_pow stays
+// for bls381.fq12_pow_const; miller_accumulate moved here).
+//
+// Layout: one block of 160 threads per row, everything in shared memory;
+// inputs are read once from device memory and outputs written once, as
+// canonical limbs.  What bounds them is the dependent chain of tower
+// steps on one SM: each step is five short stages (fq12w.cuh), the
+// longest its independent Montgomery products (one per thread, 36-54
+// threads, one warp per scheduler at most), so the
+// chain's length, not the card's throughput, sets the time.  The
+// design cuts the chain's arithmetic: 32-bit-word products instead of
+// the TPU's 8-bit limbs, Karatsuba / complex squaring / sparse lines
+// instead of the 144-product flat schoolbook, and the x-chain instead of
+// a 1,268-bit exponent.
+#include <cuda_runtime.h>
+
+#include "fq12w.cuh"
+
+namespace {
+
+constexpr int kThreads = 160;       // the 144 output columns, 5 warps
+constexpr int kWords = fqw::kWords;
+constexpr int kFq12 = tw::kFq12;
+constexpr int kTable = 15;          // base^1 .. base^15
+constexpr int kConsts = 24 * kWords;          // Frobenius constants
+constexpr int kProgCapacity = 3584;           // ints of the table
+
+// The block's shared scratch, and the table copied into shared memory
+// (its terms are read by every thread of every stage).
+struct Shared {
+  __align__(16) uint32_t scratch[tw::kScratchWords];
+  uint64_t cols[12 * kWords];
+  int prog[kProgCapacity];
+};
+
+__device__ void load_prog(Shared& sh, const int* prog, int len) {
+  tw::tasks(len, [&](int i) { sh.prog[i] = prog[i]; });
+}
+
+__global__ void __launch_bounds__(kThreads)
+fq12_hard_pow_kernel(const int* __restrict__ x, const int* __restrict__ prog,
+                     int prog_len, const uint32_t* __restrict__ consts,
+                     const int* __restrict__ d1, int n1,
+                     const int* __restrict__ dx, int nx,
+                     int* __restrict__ out) {
+  __shared__ Shared sh;
+  __shared__ __align__(16) uint32_t sbuf[5 * kFq12 + kTable * kFq12];
+  __shared__ __align__(16) uint32_t sconst[kConsts];
+  const long long row = blockIdx.x;
+  load_prog(sh, prog, prog_len);
+  tw::tasks(kConsts, [&](int i) { sconst[i] = consts[i]; });
+  const tw::HardBuffers h{sbuf, sbuf + kFq12, sbuf + 2 * kFq12,
+                          sbuf + 3 * kFq12, sbuf + 4 * kFq12,
+                          sbuf + 5 * kFq12};
+  tw::hard_pow_row(sh.prog, sconst, d1, n1, dx, nx, x + row * tw::kFlatInts,
+                   out + row * tw::kFlatInts, h, tw::make_scratch(sh.scratch, sh.cols));
+}
+
+__global__ void __launch_bounds__(kThreads)
+miller_accumulate_kernel(const int* __restrict__ lines,
+                         const int* __restrict__ prog, int prog_len,
+                         int* __restrict__ out, int steps) {
+  __shared__ Shared sh;
+  __shared__ __align__(16) uint32_t sf[kFq12], sl[2 * kFq12];
+  __shared__ __align__(16) int sstage[4 * tw::kFlatInts];
+  const long long row = blockIdx.x;
+  load_prog(sh, prog, prog_len);
+  tw::miller_row(sh.prog, lines + row * steps * 2 * tw::kFlatInts, steps,
+                 out + row * tw::kFlatInts, sf, sl, sstage, tw::make_scratch(sh.scratch, sh.cols));
+}
+
+}  // namespace
+
+// x, out (rows, 12, 48); prog (prog_len,) the table of fq12_tower.py;
+// consts the 24 Frobenius constants as (24, 12) words; d1 (n1,) the
+// base-16 digits of (x - 1)^2 / 3 and dx (nx,) the bits of |x|, most
+// significant first.
+extern "C" int hk_fq12_hard_pow(const int* x, const int* prog, int prog_len,
+                                const int* consts, const int* d1, int n1,
+                                const int* dx, int nx, int* out,
+                                long long rows, void* stream) {
+  if (prog_len > kProgCapacity) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 0) {
+    fq12_hard_pow_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        x, prog, prog_len, reinterpret_cast<const uint32_t*>(consts), d1, n1,
+        dx, nx, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// lines (rows, steps, 2, 12, 48), 16-byte aligned; prog as above; out
+// (rows, 12, 48).
+extern "C" int hk_miller_accumulate(const int* lines, const int* prog,
+                                    int prog_len, int* out, long long rows,
+                                    int steps, void* stream) {
+  if (prog_len > kProgCapacity) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 0) {
+    miller_accumulate_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        lines, prog, prog_len, out, steps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

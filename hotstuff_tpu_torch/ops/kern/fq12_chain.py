@@ -1,13 +1,13 @@
-"""The BLS12-381 pairing check's Fq12 chains in fused kernels
+"""The BLS12-381 pairing check's flat Fq12 chains in fused kernels
 (csrc/fq12_chain.cu, on the Montgomery field of csrc/field381.cuh).
+The Miller accumulation and the final exponentiation's hard part run on
+the word tower of fq12_tower.py instead.
 
   fq12_mul           (rows, 12, 48) x (rows, 12, 48) -> (rows, 12, 48):
                      bls381.fq12_mul, for the products outside the loops
-  miller_accumulate  (rows, S, 2, 12, 48) Miller lines -> (rows, 12, 48):
-                     all S steps of f <- f^2 l0 l1 from f = 1
   fq12_pow           (rows, 12, 48) -> x^e for a static exponent e: the
                      4-bit windowed loop of field381.pow_windowed over
-                     Fq12 (the final exponentiation's hard part)
+                     Fq12 (bls381.fq12_pow_const)
   fq_pow             (rows, 48) -> x^e over Fq, the same loop (field381.inv,
                      e = q - 2), on an input first brought below 0.27 R
                      when its top limb is 224 or more (``STABLE_TOP``)
@@ -86,16 +86,6 @@ def fq12_mul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return F.reduce_sum(c[..., :FQ12, :])
 
 
-def miller_accumulate_plain(lines: torch.Tensor) -> torch.Tensor:
-    """(..., S, 2, 12, 48) lines -> the Miller value: the reference's
-    scan f <- (f^2 * l0) * l1 from f = 1."""
-    f = fq12_one_like(lines[..., 0, 0, :, :])
-    for s in range(lines.shape[-4]):
-        f = fq12_mul_plain(fq12_mul_plain(f, f), lines[..., s, 0, :, :])
-        f = fq12_mul_plain(f, lines[..., s, 1, :, :])
-    return f
-
-
 def fq12_pow_plain(x: torch.Tensor, exponent: int) -> torch.Tensor:
     """x^exponent over Fq12: field381.pow_windowed with fq12_mul."""
     return F.pow_windowed(x, exponent, fq12_mul_plain, fq12_one_like(x))
@@ -143,27 +133,6 @@ def fq12_mul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     check_launch("fq12_mul", build.load().hk_fq12_mul(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), rows, stream_of(x)))
     LAUNCHES["fq12_mul"] += 1
-    return out
-
-
-def miller_accumulate(lines: torch.Tensor) -> torch.Tensor:
-    """(rows, S, 2, 12, 48) int32 Montgomery Miller lines -> (rows, 12, 48)
-    Miller values: the kernel on a CUDA tensor, the plain version on a
-    CPU one."""
-    if lines.dim() != 5 or tuple(lines.shape[2:]) != (2, FQ12, NLIMBS):
-        raise ValueError(f"miller_accumulate: expected (rows, S, 2, {FQ12}, "
-                         f"{NLIMBS}) lines, got {tuple(lines.shape)}")
-    check_int32("miller_accumulate lines", lines, lines.shape)
-    if not on_card(lines):
-        return miller_accumulate_plain(lines)
-    rows, steps = lines.shape[:2]
-    out = torch.empty((rows, FQ12, NLIMBS), dtype=torch.int32,
-                      device=lines.device)
-    if rows == 0:
-        return out
-    check_launch("miller_accumulate", build.load().hk_miller_accumulate(
-        lines.data_ptr(), out.data_ptr(), rows, steps, stream_of(lines)))
-    LAUNCHES["miller_accumulate"] += 1
     return out
 
 

@@ -25,6 +25,7 @@ from hotstuff_tpu_torch.ops import field381 as F381
 from hotstuff_tpu_torch.ops import kern
 from hotstuff_tpu_torch.ops.kern import field_mul as K1
 from hotstuff_tpu_torch.ops.kern import fq12_chain as FC
+from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
 from hotstuff_tpu_torch.ops.kern import msm_accum as K3
 from hotstuff_tpu_torch.ops.kern import point_chain as PC
 from hotstuff_tpu_torch.ops.kern import probe as K0
@@ -264,11 +265,38 @@ def test_fq12_mul_equals_plain_on_card(card, rows):
     assert torch.equal(got, FC.fq12_mul_plain(x, x))
 
 
-@pytest.mark.parametrize("rows", [2, 5])
+@pytest.mark.parametrize("rows", [1, 2, 68])
 def test_miller_accumulate_equals_plain_on_card(card, rows):
-    lines = _lines(rows, rows).to(card)
-    got = _launched("miller_accumulate", lambda: FC.miller_accumulate(lines))
-    assert torch.equal(got, FC.miller_accumulate_plain(lines))
+    """Real lines (four rows tiled), with one dense random line and one
+    row of lines all equal to one, so the skip, sparse and dense branches
+    all run; canonical limbs, exact."""
+    lines = _lines(4, 4).repeat(rows, 1, 1, 1, 1)[:rows].clone()
+    lines[0, 9, 1] = _fq12_rows(2, np.random.default_rng(rows))[1]
+    if rows > 1:
+        lines[-1] = B.fq12_one((lines.shape[1], 2))
+    lines = lines.to(card)
+    got = _launched("miller_accumulate", lambda: FT.miller_accumulate(lines))
+    before = dict(FT.BRANCHES)
+    assert torch.equal(got, FT.miller_accumulate_plain(lines))
+    assert all(FT.BRANCHES[k] > before[k] for k in ("skip", "sparse",
+                                                     "dense"))
+
+
+def _easy_part_rows(rows, rng):
+    """(rows, 12, 48) easy-part outputs f^((q^6 - 1)(q^2 + 1)) of random
+    f: the cyclotomic subgroup, fq12_hard_pow's domain (made by the plain
+    operators on the CPU)."""
+    f = _fq12_rows(rows, rng)
+    f1 = B.fq12_mul(B.fq12_frobenius(f, 6), B.fq12_inv(f))
+    return B.fq12_mul(B.fq12_frobenius(f1, 2), f1).contiguous()
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_fq12_hard_pow_equals_plain_on_card(card, rows):
+    x = _easy_part_rows(rows, np.random.default_rng(rows)).to(card)
+    got = _launched("fq12_hard_pow", lambda: FT.fq12_hard_pow(x))
+    assert torch.equal(got, FT.fq12_hard_pow_plain(x))
+    assert int(got.max()) < 256
 
 
 @pytest.mark.parametrize("rows,exponent", [(1, "hard"), (3, 0), (3, 77777)])
@@ -295,7 +323,14 @@ def test_fq12_chain_wrappers_reject_bad_inputs_on_card(card):
     bad = [lambda: FC.fq12_mul(x, x[:1]),
            lambda: FC.fq12_mul(x.long(), x.long()),
            lambda: FC.fq12_mul(x.transpose(0, 1), x.transpose(0, 1)),
-           lambda: FC.miller_accumulate(lines[:, :, 0]),
+           lambda: FT.miller_accumulate(lines[:, :, 0]),
+           lambda: FT.miller_accumulate(lines.long()),
+           lambda: FT.miller_accumulate(lines.to("meta")),
+           lambda: FT.fq12_hard_pow(x[:, :6].contiguous()),
+           lambda: FT.fq12_hard_pow(x.long()),
+           lambda: FT.fq12_hard_pow(x.transpose(1, 2).contiguous()),
+           lambda: FT.fq12_hard_pow(x[:, :, ::2]),
+           lambda: FT.fq12_hard_pow(x.to("meta")),
            lambda: FC.fq12_pow(x[:, :6].contiguous(), 5),
            lambda: FC.fq12_pow(x, -1),
            lambda: FC.fq_pow(x[:, :, :47].contiguous(), 5)]
@@ -320,3 +355,27 @@ def test_bls_aggregate_checks_on_card_match_host(card):
     agg_m = host.aggregate([host.sign(sk, m) for (sk, _), m in zip(keys, msgs)])
     assert B.verify_aggregate_multi(pks, msgs, agg_m, device=card)
     assert not B.verify_aggregate_multi(pks, msgs[::-1], agg_m, device=card)
+
+
+@pytest.mark.parametrize("kind", ["QC", "forged QC", "TC"])
+def test_pairings_check_on_card_runs_the_tower_kernels(card, kind):
+    """One pairing check per statement: the verdict equals the host's,
+    and the check launches miller_accumulate and fq12_hard_pow once each
+    and the generic fq12_pow never."""
+    keys = [host.key_gen(bytes([8, i]) * 16) for i in range(3)]
+    pks = [pk for _, pk in keys]
+    msgs = [b"\x12" * 32] * 3 if kind != "TC" else \
+        [bytes([i]) * 32 for i in range(3)]
+    sigs = [host.sign(sk, m) for (sk, _), m in zip(keys, msgs)]
+    if kind == "forged QC":
+        sigs[2] = host.sign(keys[2][0], b"other")
+    agg = host.aggregate(sigs)
+    rows = B.multi_pairing_rows(pks, msgs, agg)
+    lines = torch.from_numpy(np.stack(rows)).to(card)
+    kern.reset_launches()
+    got = bool(B.pairings_check(lines).item())
+    torch.cuda.synchronize()
+    assert got == host.verify_aggregate(pks, msgs, agg) == (kind != "forged QC")
+    assert kern.LAUNCHES["miller_accumulate"] == 1
+    assert kern.LAUNCHES["fq12_hard_pow"] == 1
+    assert kern.LAUNCHES["fq12_pow"] == 0

@@ -78,7 +78,7 @@ def test_ping_verify_bulk_and_stats(sidecar):
                                      "decompress", "point_multiples",
                                      "rlc_scalars", "rlc_reduce",
                                      "fq12_mul", "miller_accumulate",
-                                     "fq12_pow", "fq_pow"}
+                                     "fq12_pow", "fq_pow", "fq12_hard_pow"}
 
 
 def test_full_queue_answers_busy(sidecar, monkeypatch):
