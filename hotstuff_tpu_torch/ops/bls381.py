@@ -6,25 +6,26 @@ Work split (the reference's host/device boundary):
   validation, hash-to-G2, public-key aggregation, and the Miller loop's
   line values (``miller_lines``).
 * DEVICE: the Miller accumulation f <- f^2 l_i over the 63 BLS_X bits
-  and the final exponentiation, as batched Fq12 arithmetic on the
-  Montgomery field of field381.py; the two long chains (the Miller
-  accumulation and the hard part) on the Fq12 tower over 32-bit words
-  (ops/kern/fq12_tower.py), whose outputs are canonical limbs.
+  and the final exponentiation of the Miller values' product, on the
+  Fq12 tower over 32-bit words (ops/kern/fq12_tower.py), whose outputs
+  are canonical limbs: a pairing check is two launches,
+  miller_accumulate and final_exp.
 
 An Fq12 element is a (..., 12, 48) int32 tensor: a flat degree-12
 polynomial over Fq (modulus w^12 - 2w^6 + 2, as in the host reference)
 with Montgomery-form coefficient limbs.  Frobenius maps are precomputed
 12x12 Fq matrices.
 
-Routing follows the tensors: on a CUDA tensor ``fq12_mul``,
-``fq12_pow_const`` and field381.inv launch the kernels of
-ops/kern/fq12_chain.py, ``miller_accumulate`` and the hard part of
-``final_exponentiate`` those of ops/kern/fq12_tower.py; on a CPU tensor
-they run those kernels' plain versions.  The few operators around them (13 Frobenius
-maps per check, 11 of them in one batch, fq12_inv's last Fq product,
-``is_one``) are plain PyTorch operators on either device, as the JAX
-package computes them with jnp.  There is no fallback: a kernel that
-fails raises.
+Routing follows the tensors: on a CUDA tensor ``pairings_check`` and
+``miller_accumulate`` launch the kernels of ops/kern/fq12_tower.py; on a
+CPU tensor they run those kernels' plain versions.  The flat Fq12
+functions that mirror the JAX package's (``fq12_mul``, ``fq12_inv``,
+``fq12_frobenius``, ``fq12_pow_const``, ``final_exponentiate``,
+``is_one``) keep its meaning and stay off the check's path: they launch
+ops/kern/fq12_chain.py's kernels (and fq12_hard_pow) on a CUDA tensor,
+with plain PyTorch operators for the Frobenius maps, fq12_inv's last Fq
+product and ``is_one``, as the JAX package computes them with jnp.
+There is no fallback: a kernel that fails raises.
 """
 
 from __future__ import annotations
@@ -212,12 +213,13 @@ def is_one(f: torch.Tensor) -> torch.Tensor:
 
 def pairings_check(lines: torch.Tensor) -> torch.Tensor:
     """lines (..., P, N_STEPS, 2, 12, 48): P pairings multiplied under ONE
-    final exponentiation -> (...,) bool (product == 1)."""
-    fs = miller_accumulate(torch.movedim(lines, -5, 0))   # (P, ..., 12, 48)
-    f = fs[0]
-    for i in range(1, fs.shape[0]):
-        f = fq12_mul(f, fs[i])
-    return is_one(final_exponentiate(f))
+    final exponentiation -> (...,) bool (product == 1): the Miller values
+    (fq12_tower.miller_accumulate), then their product's final
+    exponentiation and the test for one (fq12_tower.final_exp)."""
+    lead, p = lines.shape[:-5], lines.shape[-5]
+    fs = miller_accumulate(lines)                        # (..., P, 12, 48)
+    ok, _ = T.final_exp(fs.reshape(-1, p, 12, F.NLIMBS))
+    return ok.reshape(lead)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the verify hot paths, and their routing.
 
-Fourteen kernels, each in ``csrc/`` with a Python wrapper and a plain
+Fifteen kernels, each in ``csrc/`` with a Python wrapper and a plain
 PyTorch version of the same function beside it:
 
   probe             x + 1, the toolchain and launch check (probe.py)
@@ -14,14 +14,16 @@ PyTorch version of the same function beside it:
   rlc_scalars       K2 redesigned: the RLC program's scalar work mod L
   rlc_reduce          in one launch each (scalar_rlc.py): the products,
                       lifts and digits per row; the limb-sum reduction
-  fq12_mul          the BLS12-381 pairing check's flat Fq12 chains
-  fq12_pow            (fq12_chain.py, no TPU kernel behind them): one
-  fq_pow              Fq12 product, the windowed exponentiations over
-                      Fq12 and over Fq
-  fq12_hard_pow     the check's long chains on the Fq12 tower over
-  miller_accumulate   32-bit words (fq12_tower.py): the final
-                      exponentiation's hard part as the chain in x, and
-                      the whole Miller accumulation
+  fq12_mul          flat Fq12 chains (fq12_chain.py, no TPU kernel
+  fq12_pow            behind them): one Fq12 product, the windowed
+  fq_pow              exponentiations over Fq12 and over Fq, for
+                      bls381's flat Fq12 functions, off the check's path
+  final_exp         the check on the Fq12 tower over 32-bit words
+  fq12_hard_pow       (fq12_tower.py): the product of the Miller values,
+  miller_accumulate   its whole final exponentiation and the verdict; the
+                      hard part alone as the chain in x; the whole Miller
+                      accumulation.  A pairing check launches
+                      miller_accumulate and final_exp, nothing else
 
 Routing follows the tensors and nothing else: a CUDA tensor always goes
 through the kernel, a CPU tensor always through the plain version.
@@ -39,7 +41,7 @@ LAUNCHES = {"probe": 0, "field_mul": 0, "scalar_mont_mul": 0,
             "msm_window_accum": 0, "point_ladder": 0, "decompress": 0,
             "point_multiples": 0, "rlc_scalars": 0, "rlc_reduce": 0,
             "fq12_mul": 0, "miller_accumulate": 0, "fq12_pow": 0,
-            "fq_pow": 0, "fq12_hard_pow": 0}
+            "fq_pow": 0, "fq12_hard_pow": 0, "final_exp": 0}
 
 
 def reset_launches() -> None:

@@ -1,6 +1,13 @@
-// The BLS12-381 check's two long chains on the Fq12 tower of fq12w.cuh,
-// over the 32-bit-word Montgomery field of fq381w.cuh:
+// The BLS12-381 check on the Fq12 tower of fq12w.cuh, over the
+// 32-bit-word Montgomery field of fq381w.cuh, in two launches:
+// miller_accumulate, then final_exp.
 //
+//   final_exp          the product of a check's P Miller values, raised
+//                      to (q^12 - 1) / r, and whether that is one (the
+//                      verdict): P - 1 products, the easy part with the
+//                      inverse taken down the tower to one Fq inversion
+//                      (a binary extended Euclid, fq381w.cuh), then the
+//                      hard part's chain below, all in one block;
 //   fq12_hard_pow      f^((q^4 - q^2 + 1) / r) for f in the cyclotomic
 //                      subgroup (bls381.final_exponentiate's hard part),
 //                      as the exact chain in x = -BLS_X: a 126-bit
@@ -17,7 +24,9 @@
 // No TPU kernel stands behind these: the JAX package runs the whole check
 // as one XLA program (hotstuff_tpu/ops/bls381.py:217 pairings_check_jit).
 // They replace fq12_chain.cu's flat-polynomial versions (fq12_pow stays
-// for bls381.fq12_pow_const; miller_accumulate moved here).
+// for bls381.fq12_pow_const, fq12_mul and fq_pow for bls381.fq12_mul and
+// fq12_inv; miller_accumulate moved here; final_exp took the check's
+// product, fq12_inv, easy part and is_one off them).
 //
 // Layout: one block of 160 threads per row, everything in shared memory;
 // inputs are read once from device memory and outputs written once, as
@@ -55,23 +64,50 @@ __device__ void load_prog(Shared& sh, const int* prog, int len) {
   tw::tasks(len, [&](int i) { sh.prog[i] = prog[i]; });
 }
 
+// The shared memory of the two power kernels: the block's scratch and
+// table, the hard part's buffers and the Frobenius constants.
+struct PowShared {
+  Shared sh;
+  __align__(16) uint32_t buf[5 * kFq12 + kTable * kFq12];
+  __align__(16) uint32_t consts[kConsts];
+};
+
+__device__ tw::HardBuffers load_pow(PowShared& p, const int* prog,
+                                    int prog_len, const uint32_t* consts) {
+  load_prog(p.sh, prog, prog_len);
+  tw::tasks(kConsts, [&](int i) { p.consts[i] = consts[i]; });
+  uint32_t* b = p.buf;
+  return tw::HardBuffers{b, b + kFq12, b + 2 * kFq12, b + 3 * kFq12,
+                         b + 4 * kFq12, b + 5 * kFq12};
+}
+
 __global__ void __launch_bounds__(kThreads)
 fq12_hard_pow_kernel(const int* __restrict__ x, const int* __restrict__ prog,
                      int prog_len, const uint32_t* __restrict__ consts,
                      const int* __restrict__ d1, int n1,
                      const int* __restrict__ dx, int nx,
                      int* __restrict__ out) {
-  __shared__ Shared sh;
-  __shared__ __align__(16) uint32_t sbuf[5 * kFq12 + kTable * kFq12];
-  __shared__ __align__(16) uint32_t sconst[kConsts];
+  __shared__ PowShared p;
   const long long row = blockIdx.x;
-  load_prog(sh, prog, prog_len);
-  tw::tasks(kConsts, [&](int i) { sconst[i] = consts[i]; });
-  const tw::HardBuffers h{sbuf, sbuf + kFq12, sbuf + 2 * kFq12,
-                          sbuf + 3 * kFq12, sbuf + 4 * kFq12,
-                          sbuf + 5 * kFq12};
-  tw::hard_pow_row(sh.prog, sconst, d1, n1, dx, nx, x + row * tw::kFlatInts,
-                   out + row * tw::kFlatInts, h, tw::make_scratch(sh.scratch, sh.cols));
+  const tw::HardBuffers h = load_pow(p, prog, prog_len, consts);
+  tw::hard_pow_row(p.sh.prog, p.consts, d1, n1, dx, nx,
+                   x + row * tw::kFlatInts, out + row * tw::kFlatInts, h,
+                   tw::make_scratch(p.sh.scratch, p.sh.cols));
+}
+
+__global__ void __launch_bounds__(kThreads)
+final_exp_kernel(const int* __restrict__ x, int n,
+                 const int* __restrict__ prog, int prog_len,
+                 const uint32_t* __restrict__ consts,
+                 const int* __restrict__ d1, int n1,
+                 const int* __restrict__ dx, int nx, int* __restrict__ out,
+                 int* __restrict__ ok) {
+  __shared__ PowShared p;
+  const long long row = blockIdx.x;
+  const tw::HardBuffers h = load_pow(p, prog, prog_len, consts);
+  tw::final_exp_row(p.sh.prog, p.consts, d1, n1, dx, nx,
+                    x + row * n * tw::kFlatInts, n, out + row * tw::kFlatInts,
+                    ok + row, h, tw::make_scratch(p.sh.scratch, p.sh.cols));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -103,6 +139,25 @@ extern "C" int hk_fq12_hard_pow(const int* x, const int* prog, int prog_len,
                            static_cast<cudaStream_t>(stream)>>>(
         x, prog, prog_len, reinterpret_cast<const uint32_t*>(consts), d1, n1,
         dx, nx, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (rows, n, 12, 48), n >= 1: each row's n Miller values; the other
+// inputs as for hk_fq12_hard_pow; out (rows, 12, 48) the product's final
+// exponentiation, ok (rows,) 1 where it is one, else 0.
+extern "C" int hk_final_exp(const int* x, int n, const int* prog,
+                            int prog_len, const int* consts, const int* d1,
+                            int n1, const int* dx, int nx, int* out, int* ok,
+                            long long rows, void* stream) {
+  if (prog_len > kProgCapacity || n < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rows > 0) {
+    final_exp_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        x, n, prog, prog_len, reinterpret_cast<const uint32_t*>(consts), d1,
+        n1, dx, nx, out, ok);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 // The Fq2 / Fq6 / Fq12 tower over the word field of fq381w.cuh, and the
-// two chains of the BLS12-381 check that run on it (fq12_tower.cu):
-// the Miller accumulation and the hard part of the final
-// exponentiation.
+// chains of the BLS12-381 check that run on it (fq12_tower.cu): the
+// Miller accumulation, the hard part of the final exponentiation, and
+// the whole final exponentiation of a product of Miller values (the
+// product, the easy part with its tower inverse, the hard part and the
+// test for one).
 //
 // Tower: Fq2 = Fq[u]/(u^2 + 1), Fq6 = Fq2[v]/(v^3 - (1 + u)), Fq12 =
 // Fq6[w]/(w^2 - v).  An Fq12 element is 12 Fq values of 12 words, Fq
@@ -12,7 +14,8 @@
 // k / 2.
 //
 // Every product of the tower (Karatsuba product, complex squaring, the
-// sparse product by a Miller line, the two Frobenius maps) is bilinear:
+// sparse product by a Miller line, the two Frobenius maps, and the two
+// steps of the Fq6 inverse) is bilinear:
 // K Fq products of operands that are signed sums of the inputs' Fq
 // values, then 12 outputs that are signed sums of the products.
 // fq12_tower.py derives the sums from the tower formulas (once, in
@@ -65,7 +68,11 @@ constexpr int kMaxProducts = 54;
 constexpr int kFlatInts = 12 * 48;     // ints of one flat element's limbs
 
 // Table records, in fq12_tower.py's order (OPS).
-enum Op { kMul = 0, kSqr = 1, kLine = 2, kFrob1 = 3, kFrob2 = 4 };
+enum Op {
+  kMul = 0, kSqr = 1, kLine = 2, kFrob1 = 3, kFrob2 = 4, kInv6Abc = 5,
+  kInv6Norm = 6
+};
+constexpr int kOps = 7;
 
 #if defined(__CUDACC__)
 template <class F>
@@ -146,17 +153,29 @@ template <> struct Shape<kFrob2> {
   static constexpr int k = 12, la = 1, lb = 1, lo = 1;
   static constexpr bool neg = false;
 };
+template <> struct Shape<kInv6Abc> {
+  static constexpr int k = 18, la = 2, lb = 2, lo = 6;
+  static constexpr bool neg = false;
+};
+template <> struct Shape<kInv6Norm> {
+  static constexpr int k = 9, la = 2, lb = 2, lo = 7;
+  static constexpr bool neg = false;
+};
 
 // K, LA, LB and LO of record op, for the host's check of the table.
 inline void record_shape(int op, int* out) {
-  const int shapes[5][4] = {
+  const int shapes[kOps][4] = {
       {Shape<kMul>::k, Shape<kMul>::la, Shape<kMul>::lb, Shape<kMul>::lo},
       {Shape<kSqr>::k, Shape<kSqr>::la, Shape<kSqr>::lb, Shape<kSqr>::lo},
       {Shape<kLine>::k, Shape<kLine>::la, Shape<kLine>::lb, Shape<kLine>::lo},
       {Shape<kFrob1>::k, Shape<kFrob1>::la, Shape<kFrob1>::lb,
        Shape<kFrob1>::lo},
       {Shape<kFrob2>::k, Shape<kFrob2>::la, Shape<kFrob2>::lb,
-       Shape<kFrob2>::lo}};
+       Shape<kFrob2>::lo},
+      {Shape<kInv6Abc>::k, Shape<kInv6Abc>::la, Shape<kInv6Abc>::lb,
+       Shape<kInv6Abc>::lo},
+      {Shape<kInv6Norm>::k, Shape<kInv6Norm>::la, Shape<kInv6Norm>::lb,
+       Shape<kInv6Norm>::lo}};
   for (int i = 0; i < 4; ++i) out[i] = shapes[op][i];
 }
 
@@ -271,20 +290,19 @@ TW_FN void conj(const uint32_t* x, uint32_t* out) {
 }
 
 // n of the reference's flat (12, 48) elements (weak, nonnegative limbs)
-// -> n tower elements: each Fq value's limbs to reduced words (12 n
-// tasks, into tmp: 12 n values), then the Fq2 coefficients (6 n tasks).
-TW_FN void flat_to_tower(const int* limbs, uint32_t* out, int n,
-                         uint32_t* tmp) {
-  tasks(12 * n, [&](int t) {
-    fqw::load_limbs(limbs + t * 48, tmp + t * kWords);
-  });
+// -> n tower elements: one task per Fq2 coefficient (6 n tasks), each
+// reducing its two limb rows a_k, a_{k+6} to words.
+TW_FN void flat_to_tower(const int* limbs, uint32_t* out, int n) {
   tasks(6 * n, [&](int t) {
     const int e = t / 6, k = t - 6 * e;
-    const uint32_t* w = tmp + 12 * e * kWords;
+    const int* a = limbs + e * kFlatInts;
+    uint32_t lo[kWords], hi[kWords];
+    fqw::load_limbs(a + k * 48, lo);
+    fqw::load_limbs(a + (k + 6) * 48, hi);
     uint32_t* o = out + e * kFq12 + (6 * (k & 1) + 2 * (k >> 1)) * kWords;
-    fqw::add_mod(w + k * kWords, w + (k + 6) * kWords, o);
+    fqw::add_mod(lo, hi, o);
 #pragma unroll
-    for (int i = 0; i < kWords; ++i) o[kWords + i] = w[(k + 6) * kWords + i];
+    for (int i = 0; i < kWords; ++i) o[kWords + i] = hi[i];
   });
 }
 
@@ -370,16 +388,14 @@ struct HardBuffers {
   uint32_t *f, *a, *b, *t, *u, *table;
 };
 
-// f^((q^4 - q^2 + 1) / r) for f in the cyclotomic subgroup (an easy-part
-// output), with x = -BLS_X: a = f^((x - 1)^2 / 3), b = a^x a^q, c =
-// b^(x^2) b^(q^2) b^-1, out = c f, where a^x = conj(a^|x|) and b^-1 =
+// h.a = h.f^((q^4 - q^2 + 1) / r) for h.f in the cyclotomic subgroup (an
+// easy-part output), with x = -BLS_X: a = f^((x - 1)^2 / 3), b = a^x a^q,
+// c = b^(x^2) b^(q^2) b^-1, out = c f, where a^x = conj(a^|x|) and b^-1 =
 // conj(b) hold only in that subgroup.  consts: the Frobenius maps' 12 +
 // 12 Fq constants (y of records kFrob1, kFrob2).
-TW_OUTLINE void hard_pow_row(const int* prog, const uint32_t* consts,
-                             const int* d1, int n1, const int* dx, int nx,
-                             const int* in, int* out, const HardBuffers& h,
-                             const Scratch& s) {
-  flat_to_tower(in, h.f, 1, s.vx);
+TW_OUTLINE void hard_pow_tower(const int* prog, const uint32_t* consts,
+                               const int* d1, int n1, const int* dx, int nx,
+                               const HardBuffers& h, const Scratch& s) {
   pow_digits(prog, h.f, d1, n1, 4, h.a, h.table, s);      // a
   pow_digits(prog, h.a, dx, nx, 1, h.t, h.table, s);      // a^|x|
   conj(h.t, h.t);                                         // a^x
@@ -392,7 +408,66 @@ TW_OUTLINE void hard_pow_row(const int* prog, const uint32_t* consts,
   conj(h.b, h.u);                                         // b^-1
   bilinear<kMul>(prog, h.a, h.u, h.a, s);                 // c
   bilinear<kMul>(prog, h.a, h.f, h.a, s);                 // c f
+}
+
+// The hard part of one flat element (fq12_hard_pow).
+TW_OUTLINE void hard_pow_row(const int* prog, const uint32_t* consts,
+                             const int* d1, int n1, const int* dx, int nx,
+                             const int* in, int* out, const HardBuffers& h,
+                             const Scratch& s) {
+  flat_to_tower(in, h.f, 1);
+  hard_pow_tower(prog, consts, d1, n1, dx, nx, h, s);
   tower_to_flat(h.a, out);
+}
+
+// out = f^-1 (0 -> 0) for f = a + b w, given cf = conj(f) = a - b w, down
+// the tower with one Fq inversion: N = f cf = a^2 - b^2 v in Fq6; for N
+// = c0 + c1 v + c2 v^2, (A, B, C) = (c0^2 - xi c1 c2, xi c2^2 - c0 c1,
+// c1^2 - c0 c2) and the Fq2 norm F = c0 A + xi (c2 B + c1 C), so N^-1 =
+// (A, B, C) F^-1 and f^-1 = cf N^-1; F^-1 = conj(F) / (F0^2 + F1^2) on
+// one thread (fqw::fq2_inv).  Elements of Fq6 and Fq2 sit in the first
+// 6 and 2 values of a tower element, the rest zero, so the Karatsuba
+// product multiplies them.  t, u: scratch elements.
+TW_OUTLINE void tower_inv(const int* prog, const uint32_t* f,
+                          const uint32_t* cf, uint32_t* out, uint32_t* t,
+                          uint32_t* u, const Scratch& s) {
+  bilinear<kMul>(prog, f, cf, t, s);              // N
+  bilinear<kInv6Abc>(prog, t, t, u, s);           // (A, B, C)
+  bilinear<kInv6Norm>(prog, t, u, out, s);        // F
+  tasks(1, [&](int) { fqw::fq2_inv(out, out + kWords, out, out + kWords); });
+  bilinear<kMul>(prog, u, out, t, s);             // N^-1
+  bilinear<kMul>(prog, cf, t, out, s);            // f^-1
+}
+
+// The final exponentiation of the product of n flat elements (n >= 1):
+// out = p^((q^12 - 1) / r) for p = in_0 ... in_(n-1), as canonical flat
+// limbs, and *ok = (out == 1).  The inputs enter the tower up to 15 at a
+// time (into the table, free until the hard part) and multiply into h.f;
+// the easy part f^((q^6 - 1)(q^2 + 1)) is conj(f) f^-1, then its q^2
+// power times itself; the hard part is hard_pow_tower's chain.
+TW_OUTLINE void final_exp_row(const int* prog, const uint32_t* consts,
+                              const int* d1, int n1, const int* dx, int nx,
+                              const int* in, int n, int* out, int* ok,
+                              const HardBuffers& h, const Scratch& s) {
+  constexpr int kChunk = 15;
+  for (int i = 0; i < n; i += kChunk) {
+    const int m = n - i < kChunk ? n - i : kChunk;
+    flat_to_tower(in + i * kFlatInts, h.table, m);
+    int j = 0;
+    if (i == 0) {
+      copy(h.table, h.f);
+      j = 1;
+    }
+    for (; j < m; ++j) bilinear<kMul>(prog, h.f, h.table + j * kFq12, h.f, s);
+  }
+  conj(h.f, h.a);
+  tower_inv(prog, h.f, h.a, h.b, h.t, h.u, s);
+  bilinear<kMul>(prog, h.a, h.b, h.f, s);                 // f^(q^6 - 1)
+  bilinear<kFrob2>(prog, h.f, consts + 12 * kWords, h.a, s);
+  bilinear<kMul>(prog, h.a, h.f, h.f, s);                 // ^(q^2 + 1)
+  hard_pow_tower(prog, consts, d1, n1, dx, nx, h, s);
+  tower_to_flat(h.a, out);
+  tasks(1, [&](int) { *ok = fq12_is_one(h.a) ? 1 : 0; });
 }
 
 // The Miller accumulation f <- f^2 l0 l1 over steps (S, 2, 12, 48) flat
@@ -415,7 +490,7 @@ TW_OUTLINE void miller_row(const int* prog, const int* lines, int steps,
       copy_async(stage + ((step + 1) & 1) * kStep,
                  lines + (step + 1) * kStep, kStep);
     }
-    flat_to_tower(cur, l, 2, s.vx);
+    flat_to_tower(cur, l, 2);
     bool one[2], sparse[2];
     for (int slot = 0; slot < 2; ++slot) {
       one[slot] = fq12_is_one(l + slot * kFq12);

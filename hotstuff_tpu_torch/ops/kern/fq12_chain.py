@@ -1,7 +1,9 @@
-"""The BLS12-381 pairing check's flat Fq12 chains in fused kernels
-(csrc/fq12_chain.cu, on the Montgomery field of csrc/field381.cuh).
-The Miller accumulation and the final exponentiation's hard part run on
-the word tower of fq12_tower.py instead.
+"""Flat Fq12 chains in fused kernels (csrc/fq12_chain.cu, on the
+Montgomery field of csrc/field381.cuh), for ops/bls381's flat Fq12
+functions that mirror the JAX package's (fq12_mul, fq12_inv,
+fq12_pow_const, final_exponentiate).  A pairing check runs none of them:
+it is miller_accumulate and final_exp on the word tower of
+fq12_tower.py.
 
   fq12_mul           (rows, 12, 48) x (rows, 12, 48) -> (rows, 12, 48):
                      bls381.fq12_mul, for the products outside the loops

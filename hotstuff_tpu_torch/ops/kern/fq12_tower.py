@@ -1,7 +1,13 @@
-"""The BLS12-381 check's two long chains on the Fq12 tower, in one fused
-kernel each (csrc/fq12_tower.cu, on csrc/fq12w.cuh and the 32-bit-word
-field of csrc/fq381w.cuh):
+"""The BLS12-381 check on the Fq12 tower, in fused kernels
+(csrc/fq12_tower.cu, on csrc/fq12w.cuh and the 32-bit-word field of
+csrc/fq381w.cuh); a pairing check is miller_accumulate, then final_exp:
 
+  final_exp          (rows, P, 12, 48) Miller values -> the verdicts
+                     (rows,) (their product raised to (q^12 - 1) / r is
+                     one) and that power (rows, 12, 48): the P - 1
+                     products, the easy part with its inverse taken down
+                     the tower to one Fq inversion, the hard part's chain
+                     and the test for one, in one launch
   fq12_hard_pow      (rows, 12, 48) -> f^((q^4 - q^2 + 1) / r) for f in
                      the cyclotomic subgroup: the final exponentiation's
                      hard part as the exact chain in x = -BLS_X
@@ -26,7 +32,8 @@ signed sums of the inputs, then 12 signed sums of the products -- so the
 tower formulas below run once, on symbols, at import, and leave three
 integer matrices per product (``OPS``): the Karatsuba product (54
 products), the complex square (36), the product by a sparse Miller line
-(42), and the two Frobenius maps (18 and 12 products by constants).
+(42), the two Frobenius maps (18 and 12 products by constants), and the
+two steps of the Fq6 inverse (18 and 9).
 The kernel evaluates those matrices from a table (``PROGRAM``), and the
 plain version applies the same matrices with field381's plain operators,
 so the two run the same algorithm.
@@ -43,6 +50,7 @@ import torch
 from .. import field381 as F
 from ...offchain import bls12381 as host
 from . import LAUNCHES, build, check_int32, check_launch, on_card, stream_of
+from .fq12_chain import fq_pow_plain
 
 Q = F.Q
 BLS_X = host.BLS_X           # |x|; the BLS parameter is x = -BLS_X
@@ -153,6 +161,24 @@ def _fq12_mul_line(f, l00, l11, l12):
     return (_fq6_add(v0, _fq6_by_v(v1)), _fq6_sub(_fq6_sub(v2, v0), v1))
 
 
+def _inv6_abc(c, d):
+    """For N = c0 + c1 v + c2 v^2 in Fq6 (c = d = N): (A, B, C) = (c0^2 -
+    xi c1 c2, xi c2^2 - c0 c1, c1^2 - c0 c2), N's adjugate, so that N
+    (A, B, C) = F, the norm below: 18 Fq products."""
+    c0, c1, c2 = c
+    d0, d1, d2 = d
+    return (_sub(_fq2_mul(c0, d0), _fq2_nr(_fq2_mul(c1, d2))),
+            _sub(_fq2_nr(_fq2_mul(c2, d2)), _fq2_mul(c0, d1)),
+            _sub(_fq2_mul(c1, d1), _fq2_mul(c0, d2)))
+
+
+def _inv6_norm(c, abc):
+    """N's norm to Fq2, F = c0 A + xi (c2 B + c1 C): 9 Fq products."""
+    a, b, cc = abc
+    return _add(_fq2_mul(c[0], a), _fq2_nr(_add(_fq2_mul(c[2], b),
+                                                 _fq2_mul(c[1], cc))))
+
+
 def _fq2_index(k: int) -> tuple:
     """Flat Fq2 coefficient k (of w^k, k < 6) -> its tower place (i, j)."""
     return k % 2, k // 2
@@ -260,6 +286,22 @@ def _line_formula(x, y):
     return _join(_fq12_mul_line(_split(x), t[0][0], t[1][1], t[1][2]))
 
 
+def _low(values, x):
+    """Values in the first places of a tower element, zero in the rest
+    (an Fq6 or Fq2 element inside Fq12)."""
+    zero = x[0] - x[0]
+    return list(values) + [zero] * (12 - len(values))
+
+
+def _abc_formula(x, y):
+    return _low([v for c in _inv6_abc(_split(x)[0], _split(y)[0])
+                 for v in c], x)
+
+
+def _norm_formula(x, y):
+    return _low(_inv6_norm(_split(x)[0], _split(y)[0]), x)
+
+
 # The order is the kernel's (fq12w.cuh, enum Op).
 OPS = {
     "mul": Bilinear(lambda x, y: _join(_fq12_mul(_split(x), _split(y)))),
@@ -267,8 +309,10 @@ OPS = {
     "line": Bilinear(_line_formula),
     "frob1": Bilinear(lambda x, y: _join(_fq12_frob1(_split(x), y))),
     "frob2": Bilinear(lambda x, y: _join(_fq12_frob2(_split(x), y))),
+    "inv6_abc": Bilinear(_abc_formula),
+    "inv6_norm": Bilinear(_norm_formula),
 }
-assert [OPS[k].products for k in OPS] == [54, 36, 42, 18, 12]
+assert [OPS[k].products for k in OPS] == [54, 36, 42, 18, 12, 18, 9]
 
 
 MAX_PRODUCTS = 54            # fq12w.cuh kMaxProducts
@@ -276,7 +320,8 @@ MAX_PRODUCTS = 54            # fq12w.cuh kMaxProducts
 # compile time (the forms are padded to these lengths).
 RECORD_SHAPES = {"mul": (54, 8, 8, 36), "sqr": (36, 8, 8, 23),
                  "line": (42, 8, 4, 21), "frob1": (18, 2, 2, 3),
-                 "frob2": (12, 1, 1, 1)}
+                 "frob2": (12, 1, 1, 1), "inv6_abc": (18, 2, 2, 6),
+                 "inv6_norm": (9, 2, 2, 7)}
 
 
 def _program() -> np.ndarray:
@@ -437,21 +482,71 @@ def pow_digits_plain(x: torch.Tensor, digits, width: int) -> torch.Tensor:
     return acc
 
 
-def fq12_hard_pow_plain(x: torch.Tensor) -> torch.Tensor:
-    """(..., 12, 48) flat Fq12 in the cyclotomic subgroup -> canonical
-    limbs of x^((q^4 - q^2 + 1) / r), by the kernel's chain: a =
-    f^((x - 1)^2 / 3), b = conj(a^|x|) a^q, c = (b^|x|)^|x| b^(q^2)
-    conj(b), out = c f.  Outside the subgroup conjugation is not the
-    inverse and the result is not the power."""
-    c1, c2 = _frob_consts(x.device)
-    f = flat_to_tower_plain(x)
+def _hard_pow_tower_plain(f: torch.Tensor) -> torch.Tensor:
+    """The hard part's chain on canonical tower elements (the kernel's
+    hard_pow_tower)."""
+    c1, c2 = _frob_consts(f.device)
     a = pow_digits_plain(f, E1_DIGITS, E1_WIDTH)
     t = conj_plain(pow_digits_plain(a, X_DIGITS, 1))
     b = bilinear_plain("mul", t, bilinear_plain("frob1", a, c1))
     t = pow_digits_plain(pow_digits_plain(b, X_DIGITS, 1), X_DIGITS, 1)
     t = bilinear_plain("mul", t, bilinear_plain("frob2", b, c2))
     t = bilinear_plain("mul", t, conj_plain(b))
-    return tower_to_flat_plain(bilinear_plain("mul", t, f))
+    return bilinear_plain("mul", t, f)
+
+
+def fq12_hard_pow_plain(x: torch.Tensor) -> torch.Tensor:
+    """(..., 12, 48) flat Fq12 in the cyclotomic subgroup -> canonical
+    limbs of x^((q^4 - q^2 + 1) / r), by the kernel's chain: a =
+    f^((x - 1)^2 / 3), b = conj(a^|x|) a^q, c = (b^|x|)^|x| b^(q^2)
+    conj(b), out = c f.  Outside the subgroup conjugation is not the
+    inverse and the result is not the power."""
+    return tower_to_flat_plain(_hard_pow_tower_plain(flat_to_tower_plain(x)))
+
+
+def fq2_inv_plain(a: torch.Tensor) -> torch.Tensor:
+    """(..., 2, 48) canonical Montgomery Fq2 -> its canonical inverse
+    (0 -> 0): conj(a) / (a0^2 + a1^2), the one Fq inverse by
+    fq12_chain's plain Fermat power (the kernel's fqw::fq2_inv takes it
+    by a binary extended Euclid: an inverse mod q is unique, so the two
+    agree on the canonical residue)."""
+    a0, a1 = a[..., 0, :], a[..., 1, :]
+    n = F.canonical(F.add(F.mont_mul(a0, a0), F.mont_mul(a1, a1)))
+    n_inv = F.canonical(fq_pow_plain(n, Q - 2))
+    return torch.stack([F.canonical(F.mont_mul(a0, n_inv)),
+                        F.canonical(F.neg(F.mont_mul(a1, n_inv)))], -2)
+
+
+def tower_inv_plain(t: torch.Tensor) -> torch.Tensor:
+    """(..., 12, 48) canonical tower elements -> their canonical inverses
+    (0 -> 0), down the tower as the kernel's tower_inv: N = f conj(f) in
+    Fq6, its adjugate (A, B, C) and Fq2 norm F, F^-1, then f^-1 =
+    conj(f) (A, B, C) F^-1."""
+    cf = conj_plain(t)
+    n = bilinear_plain("mul", t, cf)
+    abc = bilinear_plain("inv6_abc", n, n)
+    norm = bilinear_plain("inv6_norm", n, abc)
+    f_inv = torch.cat([fq2_inv_plain(norm[..., :2, :]),
+                       torch.zeros_like(norm[..., 2:, :])], -2)
+    return bilinear_plain("mul", cf, bilinear_plain("mul", abc, f_inv))
+
+
+def final_exp_plain(fs: torch.Tensor) -> tuple:
+    """(rows, P, 12, 48) flat Miller values (P >= 1) -> ((rows,) bool
+    verdicts, (rows, 12, 48) canonical limbs of p^((q^12 - 1) / r)) for
+    p the product of each row's P values, by the kernel's algorithm: the
+    P - 1 Karatsuba products, f^(q^6 - 1) = conj(f) f^-1, its q^2 power
+    times itself, the hard part's chain, the test for one."""
+    t = flat_to_tower_plain(fs)
+    f = t[:, 0]
+    for i in range(1, t.shape[1]):
+        f = bilinear_plain("mul", f, t[:, i])
+    _, c2 = _frob_consts(fs.device)
+    f = bilinear_plain("mul", conj_plain(f), tower_inv_plain(f))
+    f = bilinear_plain("mul", bilinear_plain("frob2", f, c2), f)
+    out = _hard_pow_tower_plain(f)
+    ok = (out == _tower_one((), fs.device)).all(-1).all(-1)
+    return ok, tower_to_flat_plain(out)
 
 
 def line_branches(tower_lines: torch.Tensor) -> tuple:
@@ -528,6 +623,33 @@ def fq12_hard_pow(x: torch.Tensor) -> torch.Tensor:
         stream_of(x)))
     LAUNCHES["fq12_hard_pow"] += 1
     return out
+
+
+def final_exp(fs: torch.Tensor) -> tuple:
+    """(rows, P, 12, 48) int32 flat Montgomery Miller values, P >= 1 ->
+    ((rows,) bool: the product of each row's values raised to (q^12 - 1)
+    / r is one, (rows, 12, 48) canonical limbs of that power): the
+    kernel on a CUDA tensor, the plain version on a CPU one."""
+    if fs.dim() != 4 or tuple(fs.shape[2:]) != (FQ12, NLIMBS) \
+            or fs.shape[1] < 1:
+        raise ValueError(f"final_exp: expected (rows, P >= 1, {FQ12}, "
+                         f"{NLIMBS}), got {tuple(fs.shape)}")
+    check_int32("final_exp fs", fs, fs.shape)
+    if not on_card(fs):
+        return final_exp_plain(fs)
+    rows, p = fs.shape[:2]
+    out = torch.empty((rows, FQ12, NLIMBS), dtype=torch.int32,
+                      device=fs.device)
+    ok = torch.empty((rows,), dtype=torch.int32, device=fs.device)
+    if rows == 0:
+        return ok.bool(), out
+    prog, consts, d1, dx = _tables(fs.device)
+    check_launch("final_exp", build.load().hk_final_exp(
+        fs.data_ptr(), p, prog.data_ptr(), prog.numel(), consts.data_ptr(),
+        d1.data_ptr(), d1.numel(), dx.data_ptr(), dx.numel(),
+        out.data_ptr(), ok.data_ptr(), rows, stream_of(fs)))
+    LAUNCHES["final_exp"] += 1
+    return ok.bool(), out
 
 
 def miller_accumulate(lines: torch.Tensor) -> torch.Tensor:

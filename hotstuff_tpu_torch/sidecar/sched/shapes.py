@@ -19,10 +19,12 @@ from ...crypto.eddsa import MAX_SUBBATCH
 RLC_MIN_LAUNCH = 16
 
 # Verify paths (also the stats path-counter keys; ``rlc_bisect`` counts
-# RLC launches whose combined check failed and bisected).
+# RLC launches whose combined check failed and bisected; ``host`` is a
+# ``--host-crypto`` engine's, which verifies every record on the host).
 PATH_PER_SIG = "per_sig"
 PATH_RLC = "rlc"
 PATH_RLC_BISECT = "rlc_bisect"
+PATH_HOST = "host"
 
 
 def route(n: int) -> str:

@@ -16,15 +16,27 @@ OP_VERIFY_BULK (bulk class: mempool batches), OP_STATS, and, in the
 latency class, OP_BLS_VERIFY_VOTES (a QC's per-vote signatures over one
 digest), OP_BLS_VERIFY_AGG (one aggregate signature), OP_BLS_VERIFY_MULTI
 (a TC: per-vote signatures over distinct digests) and OP_BLS_SIGN.
-Other opcodes (OP_HELLO, OP_CHAOS) close the connection, which the
-node's client treats as a dead sidecar and verifies on the host.
+OP_HELLO registers the connection's tenant (at most
+``TENANT_REGISTRY_CAP`` distinct ones; past that the connection closes)
+and echoes it, as the reference does; the tenant is kept per connection
+only: scheduling stays in one lane per class, shared by every tenant,
+until the tenant lanes are ported (ROADMAP Queue A item 4).  OP_CHAOS is
+answered [0], refused: the fault-injection hook (``--chaos``) is not
+ported.  A frame that does not decode closes the connection.
+
+``--host-crypto`` verifies on the host, with no device and no kernel
+build: Ed25519 with the copied ``crypto/ref_ed25519``, the BLS opcodes
+with the copied ``offchain/bls12381`` (the reference's ``use_host``
+engine).  ``--trace PATH`` appends the reference's sidecar spans
+(obs/spans.py): admit, queue, pack, dispatch, device and reply.
 
 There is no launch guard yet: a BLS check runs on the engine thread
 without a deadline, so a hung device call parks the engine (the JAX
 package runs BLS under its guard, hotstuff_tpu/sidecar/guard.py).
 
 Run:  python -m hotstuff_tpu_torch.sidecar --port 7100 [--device cuda|cpu]
-          [--warm-bls] [--warm-bls-multi N]
+          [--host-crypto] [--warm-bls] [--warm-bls-multi N]
+          [--committee N] [--client-rate TPS] [--trace PATH]
 """
 
 from __future__ import annotations
@@ -36,21 +48,19 @@ import queue
 import socket
 import socketserver
 import threading
+from base64 import b64encode
 from time import monotonic
 
 from . import protocol as proto
 from . import sched as vsched
 from ..crypto.eddsa import MAX_SUBBATCH
+from ..obs.spans import Tracer
 from ..utils.device import resolve
 
 log = logging.getLogger("sidecar")
 
 LATENCY = "latency"
 BULK = "bulk"
-
-# Admission bounds per class, in queued signatures (the JAX package's
-# static defaults): a full queue answers OP_BUSY instead of growing.
-QUEUE_CAP_SIGS = {LATENCY: 64 * 1024, BULK: 128 * 1024}
 
 # Requests answered with OP_BUSY carry this retry-after hint.
 RETRY_AFTER_MS = 50
@@ -71,6 +81,28 @@ def class_of_opcode(opcode: int) -> str:
     return BULK if opcode == proto.OP_VERIFY_BULK else LATENCY
 
 
+def _ctx_tag(request):
+    """A request's block-digest context tag as the base64 string the C++
+    node logs in its TRACE lines (obs/trace.py joins on it), or None.
+    Callers test ``tracer.enabled`` first: an untraced run never pays the
+    encode."""
+    ctx = getattr(request, "ctx", None)
+    return b64encode(ctx).decode("ascii") if ctx else None
+
+
+def _ctx_kw(request) -> dict:
+    """A span's ``ctx`` tag for one request, when it carries one."""
+    ctx = _ctx_tag(request)
+    return {"ctx": ctx} if ctx else {}
+
+
+def _ctxs_kw(batch) -> dict:
+    """A span's ``ctxs`` tag for a coalesced launch: its distinct context
+    tags, sorted, when any request carries one."""
+    tags = sorted({_ctx_tag(p.request) for p in batch} - {None})
+    return {"ctxs": tags} if tags else {}
+
+
 def sigs_of(request) -> int:
     """Signatures a request carries, the unit of the admission bounds
     (a BLS aggregate counts its public keys, a signing request one)."""
@@ -80,27 +112,42 @@ def sigs_of(request) -> int:
 
 
 class Pending:
-    """One admitted request, its class and its reply callback.  An
-    Ed25519 reply takes the mask, or None for an OP_BUSY answer; a BLS
-    reply takes the verdict list (or signature bytes), or None for a
-    transient failure (sent as [False], never cached)."""
+    """One admitted request, its class, when it was admitted, and its
+    reply callback.  An Ed25519 reply takes the
+    mask, or None for an OP_BUSY answer; a BLS reply takes the verdict
+    list (or signature bytes), or None for a transient failure (sent as
+    [False], never cached)."""
 
-    __slots__ = ("request", "reply_fn", "cls")
+    __slots__ = ("request", "reply_fn", "cls", "enqueued_at")
 
     def __init__(self, request, reply_fn, cls: str):
         self.request = request
         self.reply_fn = reply_fn
         self.cls = cls
+        self.enqueued_at = monotonic()
 
 
 class VerifyEngine:
-    """Owns the device; one engine thread drains the class queues."""
+    """Owns the device; one engine thread drains the class queues.
+
+    ``use_host`` verifies every request on the host instead (no device);
+    ``committee`` and ``client_rate`` size the class queues
+    (sched.size_queue_caps); ``tracer`` receives the stage spans."""
 
     # Bounded FIFO of (msg, pk, sig) -> verdict.
     VERDICT_CACHE_CAP = 64 * 1024
 
-    def __init__(self, device=None):
-        self.device = resolve(device)
+    def __init__(self, device=None, *, use_host: bool = False,
+                 committee: int | None = None,
+                 client_rate: int | None = None,
+                 tracer: Tracer | None = None):
+        self.use_host = use_host
+        self.device = None if use_host else resolve(device)
+        # Admission bounds per class, in queued signatures: a full queue
+        # answers OP_BUSY instead of growing.
+        self.queue_caps = dict(zip((LATENCY, BULK), vsched.size_queue_caps(
+            committee, client_rate)))
+        self._tracer = tracer or Tracer.disabled()
         self.stats = vsched.SchedStats()
         self._queues = {LATENCY: collections.deque(),
                         BULK: collections.deque()}
@@ -122,14 +169,20 @@ class VerifyEngine:
         replies OP_BUSY) when its class queue is full."""
         n = sigs_of(request)
         with self._cond:
-            if self._queued_sigs[cls] + n > QUEUE_CAP_SIGS[cls]:
+            ok = self._queued_sigs[cls] + n <= self.queue_caps[cls]
+            if ok:
+                self._queues[cls].append(Pending(request, reply_fn, cls))
+                self._queued_sigs[cls] += n
+                self.stats.note_admitted(cls)
+                self._cond.notify()
+            else:
                 self.stats.note_queue_full(cls)
-                return False
-            self._queues[cls].append(Pending(request, reply_fn, cls))
-            self._queued_sigs[cls] += n
-            self.stats.note_admitted(cls)
-            self._cond.notify()
-        return True
+        if self._tracer.enabled:
+            self._tracer.event("admit", rid=request.request_id, cls=cls,
+                               ok=ok,
+                               n=len(getattr(request, "msgs", ()) or ())
+                               or 1, **_ctx_kw(request))
+        return ok
 
     def cached_verdicts(self, request):
         """[bool] when every record of the request has a cached verdict,
@@ -186,7 +239,7 @@ class VerifyEngine:
         from ..ops import kern
 
         snap = self.stats.snapshot()
-        snap["device"] = str(self.device)
+        snap["device"] = "host" if self.use_host else str(self.device)
         snap["kernels"] = dict(kern.LAUNCHES)
         snap["verdict_cache_entries"] = len(self._verdicts)
         return snap
@@ -220,7 +273,22 @@ class VerifyEngine:
                     batch.append(q.popleft())
             self._queued_sigs[cls] -= total
         self.stats.note_launch(cls, total)
+        if self._tracer.enabled:
+            # One span per launched request: admission -> launch.
+            now = monotonic()
+            for p in batch:
+                self._tracer.event(
+                    "queue", dur_ms=(now - p.enqueued_at) * 1e3,
+                    rid=p.request.request_id, cls=p.cls,
+                    **_ctx_kw(p.request))
         return batch
+
+    def _trace_replies(self, batch):
+        if not self._tracer.enabled:
+            return
+        for p in batch:
+            self._tracer.event("reply", rid=p.request.request_id,
+                               cls=p.cls, **_ctx_kw(p.request))
 
     def _run(self):
         while True:
@@ -228,22 +296,39 @@ class VerifyEngine:
             if batch is None:
                 break
             if isinstance(batch[0].request, BLS_REQUESTS):
-                self._execute_bls(batch[0])
+                item = batch[0]
+                tags = _ctx_kw(item.request) if self._tracer.enabled else {}
+                with self._tracer.span("device", kind="bls",
+                                       rid=item.request.request_id, **tags):
+                    self._execute_bls(item)
                 continue
             try:
-                mask = self._pack(batch)()()
+                fetch = self._pack(batch)()
+                dispatched_at = monotonic()
+                if self._tracer.enabled:
+                    self._tracer.event("dispatch", reqs=len(batch),
+                                       **_ctxs_kw(batch))
+                mask = fetch()
             except Exception:
                 # A failed launch is no verdict: every request of it is
                 # answered OP_BUSY, and the node verifies on the host.
                 log.exception("verify launch failed")
                 for p in batch:
                     p.reply_fn(None)
+                self._trace_replies(batch)
                 continue
+            if self._tracer.enabled:
+                self._tracer.event(
+                    "device", dur_ms=(monotonic() - dispatched_at) * 1e3,
+                    reqs=len(batch),
+                    sigs=sum(len(p.request.msgs) for p in batch),
+                    **_ctxs_kw(batch))
             off = 0
             for p in batch:
                 n = len(p.request.msgs)
                 p.reply_fn([bool(b) for b in mask[off:off + n]])
                 off += n
+            self._trace_replies(batch)
         # Shutdown: requests still queued are answered OP_BUSY.
         with self._cond:
             left = [p for q in self._queues.values() for p in q]
@@ -255,9 +340,11 @@ class VerifyEngine:
     def _pack(self, batch):
         """Host-side pack of one coalesced batch: verdict-cache lookups,
         in-batch dedup, route selection and the verify program's own
-        pack.  Returns ``dispatch() -> fetch() -> mask``."""
+        pack (a ``--host-crypto`` engine verifies here, on the host).
+        Returns ``dispatch() -> fetch() -> mask``."""
         from ..crypto import eddsa
 
+        t0 = monotonic()
         records = [rec for p in batch for rec in zip(
             p.request.msgs, p.request.pks, p.request.sigs)]
         cached = [self._verdicts.get(r) for r in records]
@@ -271,7 +358,8 @@ class VerifyEngine:
         msgs = [r[0] for r in uniq_records]
         pks = [r[1] for r in uniq_records]
         sigs = [r[2] for r in uniq_records]
-        path = vsched.route(len(uniq_records))
+        path = vsched.PATH_HOST if self.use_host \
+            else vsched.route(len(uniq_records))
         if uniq_records:
             self.stats.note_path(path)
 
@@ -280,6 +368,11 @@ class VerifyEngine:
 
         if not uniq_records:
             dispatchers = []
+        elif path == vsched.PATH_HOST:
+            from ..crypto import ref_ed25519 as ref
+
+            res = [ref.verify(pk, m, s) for m, pk, s in zip(msgs, pks, sigs)]
+            dispatchers = [lambda: (lambda: res)]
         elif path == vsched.PATH_RLC:
             dispatchers = [eddsa.verify_batch_rlc_pack(
                 msgs, pks, sigs, on_bisect=on_bisect, device=self.device)]
@@ -288,6 +381,12 @@ class VerifyEngine:
             dispatchers = [eddsa.verify_batch_pack(
                 msgs[i:i + step], pks[i:i + step], sigs[i:i + step],
                 device=self.device) for i in range(0, len(msgs), step)]
+        if self._tracer.enabled:
+            # The port packs on the engine thread, so a pack is never
+            # hidden behind a launch in flight.
+            self._tracer.event("pack", dur_ms=(monotonic() - t0) * 1e3,
+                               reqs=len(batch), uniq=len(uniq_records),
+                               path=path, hidden=False, **_ctxs_kw(batch))
 
         def dispatch():
             fetchers = [d() for d in dispatchers]
@@ -335,7 +434,8 @@ class VerifyEngine:
         """The BLS request body; returns ``(payload, cacheable)``.  Every
         verify runs the pairing check on ``self.device``: there is no
         per-shape compile, so no shape needs warming and none falls back
-        to the host."""
+        to the host.  A ``--host-crypto`` engine runs the host reference's
+        check instead."""
         from ..offchain import bls12381 as bls
         from ..ops import bls381 as dbls
 
@@ -360,7 +460,12 @@ class VerifyEngine:
             pks = [bls.g1_decode(p) for p in req.pks]
         except ValueError:
             return [False], True
-        if isinstance(req, proto.BlsMultiRequest):
+        if self.use_host:
+            if isinstance(req, proto.BlsMultiRequest):
+                ok = bls.verify_aggregate(pks, req.msgs, agg)
+            else:
+                ok = bls.verify_aggregate_common(pks, req.msg, agg)
+        elif isinstance(req, proto.BlsMultiRequest):
             ok = dbls.verify_aggregate_multi(pks, req.msgs, agg,
                                              device=self.device)
         else:
@@ -397,6 +502,9 @@ class _Handler(socketserver.BaseRequestHandler):
 
         threading.Thread(target=writer, daemon=True,
                          name="sidecar-conn-writer").start()
+        # The connection's tenant: a HELLO sets it; a connection that
+        # never sends one is the default tenant.
+        tenant = proto.DEFAULT_TENANT
         try:
             while True:
                 try:
@@ -408,6 +516,25 @@ class _Handler(socketserver.BaseRequestHandler):
                 except ValueError:
                     log.exception("bad frame; closing connection")
                     return
+                if opcode == proto.OP_HELLO:
+                    # Distinct tenants are bounded: past the cap the
+                    # connection closes (never a hang), so a tenant-id
+                    # fuzzer cannot grow the registry without limit.
+                    if not self.server.register_tenant(req.tenant):
+                        log.warning("HELLO refused: tenant registry full "
+                                    "(tenant %r); closing connection",
+                                    req.tenant)
+                        return
+                    tenant = req.tenant
+                    outbox.put(proto.encode_hello_reply(req.request_id,
+                                                        tenant))
+                    continue
+                if opcode == proto.OP_CHAOS:
+                    # [0] = refused: the fault-injection hook is not
+                    # served, as the reference without --chaos.
+                    outbox.put(proto.encode_reply(opcode, req.request_id,
+                                                  [0]))
+                    continue
                 if opcode == proto.OP_PING:
                     outbox.put(proto.encode_reply(
                         proto.OP_PING, req.request_id, []))
@@ -420,12 +547,8 @@ class _Handler(socketserver.BaseRequestHandler):
                     verdicts = engine.cached_verdicts(req)
                 elif opcode in BLS_VERIFY_OPS:
                     verdicts = engine.cached_bls_verdict(req)
-                elif opcode == proto.OP_BLS_SIGN:
+                else:                       # OP_BLS_SIGN
                     verdicts = None
-                else:
-                    log.warning("opcode %d is not served by this sidecar; "
-                                "closing connection", opcode)
-                    return
                 if verdicts is not None:
                     outbox.put(proto.encode_reply(
                         opcode, req.request_id, verdicts))
@@ -459,9 +582,27 @@ class SidecarServer(socketserver.ThreadingTCPServer):
     allow_reuse_address = True
     daemon_threads = True
 
+    # Distinct tenant ids one server process registers over its lifetime
+    # (the reference's bound).
+    TENANT_REGISTRY_CAP = 256
+
     def __init__(self, addr, engine: VerifyEngine):
         super().__init__(addr, _Handler)
         self.engine = engine
+        self._tenants: set = set()
+        self._tenants_lock = threading.Lock()
+
+    def register_tenant(self, tenant: str) -> bool:
+        """Accept a HELLO's tenant id; False once the registry is full
+        (a known tenant is always accepted again: connections that share
+        an id share its lane)."""
+        with self._tenants_lock:
+            if tenant in self._tenants:
+                return True
+            if len(self._tenants) >= self.TENANT_REGISTRY_CAP:
+                return False
+            self._tenants.add(tenant)
+            return True
 
 
 def warmup(engine: VerifyEngine) -> None:
@@ -525,31 +666,60 @@ def warmup_bls(engine: VerifyEngine, n_votes: int = 3,
 
 
 def serve(host: str = "127.0.0.1", port: int = 7100, device=None,
-          warm_bls: bool = False, warm_bls_multi: int = 0):
-    """Warm up, then run the sidecar until interrupted; returns the
-    closed server."""
-    engine = VerifyEngine(device=device)
+          warm_bls: bool = False, warm_bls_multi: int = 0,
+          use_host: bool = False, committee: int | None = None,
+          client_rate: int | None = None, trace_path: str | None = None):
+    """Warm up (a ``use_host`` engine has nothing to warm), then run the
+    sidecar until interrupted; returns the closed server."""
+    tracer = None
+    if trace_path:
+        tracer = Tracer(trace_path)
+        log.info("span emission -> %s", trace_path)
+    engine = VerifyEngine(device=device, use_host=use_host,
+                          committee=committee, client_rate=client_rate,
+                          tracer=tracer)
     try:
         t0 = monotonic()
-        warmup(engine)
-        if warm_bls:
-            warmup_bls(engine)
-        if warm_bls_multi:
-            warmup_bls(engine, warm_bls_multi, multi=True)
-        log.info("warm-up on %s done in %.1fs", engine.device,
-                 monotonic() - t0)
+        if not use_host:
+            warmup(engine)
+            if warm_bls:
+                warmup_bls(engine)
+            if warm_bls_multi:
+                warmup_bls(engine, warm_bls_multi, multi=True)
+        log.info("warm-up on %s done in %.1fs",
+                 "the host" if use_host else engine.device, monotonic() - t0)
         server = SidecarServer((host, port), engine)
     except BaseException:
         engine.stop()
         raise
     log.info("sidecar listening on %s:%d (%s)", host,
-             server.server_address[1], engine.device)
+             server.server_address[1],
+             "host crypto" if use_host else engine.device)
     try:
         server.serve_forever(poll_interval=0.2)
     finally:
         engine.stop()
         server.server_close()
+        if tracer is not None:
+            tracer.close()
     return server
+
+
+# Flags of the reference's CLI whose machinery the port has not ported:
+# each exits with the ROADMAP item that ports it, never ignored.
+NOT_PORTED = {
+    "mesh": "sharding verify over several cards (--mesh N, N > 1) is "
+            "ROADMAP Queue A item 5 (parallel/ over torch.distributed)",
+    "chaos": "the OP_CHAOS fault-injection hook (--chaos) is ROADMAP "
+             "Queue A item 3; without it OP_CHAOS is answered [0], "
+             "refused",
+    "cadence": "the cadence ring (--cadence, sidecar/ring.py) is ROADMAP "
+               "Queue A item 3",
+    "tcp": "the fleet's second listener (--tcp) is ROADMAP Queue A item "
+           "4, with the tenant lanes",
+    "warm_rlc_sharded": "the sharded RLC programs of --mesh N "
+                        "(--warm-rlc-sharded) are ROADMAP Queue A item 5",
+}
 
 
 def main(argv=None):
@@ -559,6 +729,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the verify programs run (default: the "
                          "card; cpu runs the kernels' plain versions)")
+    ap.add_argument("--host-crypto", action="store_true",
+                    help="verify on the host (the copied ref_ed25519 and "
+                         "offchain/bls12381): no device, no kernel build")
     ap.add_argument("--warm-bls", action="store_true",
                     help="also verify one BLS aggregate before listening "
                          "(scheme=bls deployments)")
@@ -566,14 +739,42 @@ def main(argv=None):
                     help="also verify one N-vote multi-digest BLS "
                          "aggregate (the TC check at quorum size N) "
                          "before listening")
+    ap.add_argument("--warm-rlc", action="store_true",
+                    help="accepted for the harness: every boot already "
+                         "verifies one batch through the RLC program "
+                         "(the default)")
+    ap.add_argument("--committee", type=int, default=0, metavar="N",
+                    help="committee size served; sizes the latency-class "
+                         "admission cap (0 = static default)")
+    ap.add_argument("--client-rate", type=int, default=0, metavar="TPS",
+                    help="aggregate client tx rate; sizes the bulk-class "
+                         "admission cap (0 = static default)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="append JSONL spans (admit/queue/pack/dispatch/"
+                         "device/reply, tagged rid + class) to PATH")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="not ported for N > 1: " + NOT_PORTED["mesh"])
+    for flag in ("chaos", "cadence", "warm_rlc_sharded"):
+        ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
+                        help="not ported: " + NOT_PORTED[flag])
+    ap.add_argument("--tcp", default=None, metavar="HOST:PORT",
+                    help="not ported: " + NOT_PORTED["tcp"])
     ap.add_argument("-v", "--verbose", action="count", default=0)
     args = ap.parse_args(argv)
+    for flag in ("chaos", "cadence", "tcp", "warm_rlc_sharded"):
+        if getattr(args, flag):
+            ap.error(f"--{flag.replace('_', '-')} is not ported: "
+                     f"{NOT_PORTED[flag]}")
+    if args.mesh > 1:
+        ap.error(f"--mesh {args.mesh} is not ported: {NOT_PORTED['mesh']}")
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s.%(msecs)03dZ %(levelname)s [%(name)s] %(message)s",
         datefmt="%Y-%m-%dT%H:%M:%S")
     serve(args.host, args.port, device=args.device, warm_bls=args.warm_bls,
-          warm_bls_multi=args.warm_bls_multi)
+          warm_bls_multi=args.warm_bls_multi, use_host=args.host_crypto,
+          committee=args.committee or None,
+          client_rate=args.client_rate or None, trace_path=args.trace)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,9 @@ numpy-seeded, one torch thread:
 * field381.canonical on weak values up to ~2^388;
 * the kernels' own logic (csrc/fq12w.cuh, csrc/fq381w.cuh compiled as
   plain C++ by a host compiler, one row at a time) against the plain
-  versions and the word field against Python integers.
+  versions -- the hard part, the Miller accumulation, the tower inverse
+  and final_exp at P = 17 (two of its chunks of inputs) -- and the word
+  field, with its inversion, against Python integers.
 
 Every comparison is exact: residues in canonical limbs (tolerance 0).
 The new outputs are canonical; the JAX package's weak limbs are
@@ -137,14 +139,16 @@ def test_chain_constants():
     assert T.E1.bit_length() == 126 and len(T.E1_DIGITS) == 32
     assert sum(T.X_DIGITS) == 6 and len(T.X_DIGITS) == 64
     prog = T.PROGRAM
-    # [offset of each of the 5 records, records]: record i is K forms of
+    # [offset of each of the 7 records, records]: record i is K forms of
     # LA terms, K of LB and 12 of LO, as RECORD_SHAPES gives them.
     sizes = [k * (la + lb) + 12 * lo
              for k, la, lb, lo in (T.RECORD_SHAPES[n] for n in T.OPS)]
-    assert list(T.OPS) == ["mul", "sqr", "line", "frob1", "frob2"]
-    assert [T.RECORD_SHAPES[n][0] for n in T.OPS] == [54, 36, 42, 18, 12]
-    assert prog[:5].tolist() == np.cumsum([5] + sizes[:-1]).tolist()
-    assert len(prog) == 5 + sum(sizes)
+    assert list(T.OPS) == ["mul", "sqr", "line", "frob1", "frob2",
+                           "inv6_abc", "inv6_norm"]
+    assert [T.RECORD_SHAPES[n][0] for n in T.OPS] == [54, 36, 42, 18, 12,
+                                                      18, 9]
+    assert prog[:7].tolist() == np.cumsum([7] + sizes[:-1]).tolist()
+    assert len(prog) == 7 + sum(sizes)
 
 
 @pytest.fixture(scope="module")
@@ -261,6 +265,30 @@ void hh_mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out,
 void hh_load_limbs(const int* limbs, uint32_t* out, long long n) {
   for (long long i = 0; i < n; ++i) fqw::load_limbs(limbs + 48 * i, out + 12 * i);
 }
+void hh_inv_mont(const uint32_t* a, uint32_t* out, long long n) {
+  for (long long i = 0; i < n; ++i) fqw::inv_mont(a + 12 * i, out + 12 * i);
+}
+void hh_tower_inv(const uint32_t* x, const int* prog, uint32_t* out,
+                  long long rows) {
+  std::vector<uint32_t> cf(tw::kFq12), t(tw::kFq12), u(tw::kFq12);
+  for (long long r = 0; r < rows; ++r) {
+    tw::conj(x + r * tw::kFq12, cf.data());
+    tw::tower_inv(prog, x + r * tw::kFq12, cf.data(), out + r * tw::kFq12,
+                  t.data(), u.data(), scratch());
+  }
+}
+void hh_final_exp(const int* x, int n, const int* prog, const int* consts,
+                  const int* d1, int n1, const int* dx, int nx, int* out,
+                  int* ok, long long rows) {
+  std::vector<uint32_t> buf(20 * tw::kFq12);
+  uint32_t* b = buf.data();
+  tw::HardBuffers h{b, b + tw::kFq12, b + 2 * tw::kFq12, b + 3 * tw::kFq12,
+                    b + 4 * tw::kFq12, b + 5 * tw::kFq12};
+  for (long long r = 0; r < rows; ++r)
+    tw::final_exp_row(prog, reinterpret_cast<const uint32_t*>(consts), d1, n1,
+                      dx, nx, x + r * n * tw::kFlatInts, n,
+                      out + r * tw::kFlatInts, ok + r, h, scratch());
+}
 }
 """
 
@@ -344,3 +372,65 @@ def test_kernel_logic_on_the_host_equals_plain(harness, easy, branch_lines):
                       ctypes.c_longlong(len(lines)), lines.shape[1])
     assert np.array_equal(
         out, T.miller_accumulate_plain(torch.from_numpy(lines)).numpy())
+
+
+def _limb_words(x: torch.Tensor) -> np.ndarray:
+    """Canonical limbs (..., 48) -> the same values as (..., 12) words."""
+    return np.ascontiguousarray(x.numpy().astype(np.uint8)).view(np.uint32)
+
+
+def test_word_inverse_on_the_host_equals_python_integers(harness):
+    """fqw::inv_mont (the binary extended Euclid, then a product by R^3)
+    maps a R to a^-1 R: for a word value x, x^-1 R^2 mod q; 0 -> 0."""
+    rng = np.random.default_rng(57)
+    a = [0, 1, 2, Q - 1, F.R % Q, Q - 2] + \
+        [int.from_bytes(rng.bytes(48), "little") % Q for _ in range(40)]
+    wa = _words(a)
+    out = np.zeros_like(wa)
+    harness.hh_inv_mont(_ptr(wa), _ptr(out), ctypes.c_longlong(len(a)))
+    r2 = F.R * F.R % Q
+    assert _unwords(out) == [pow(x, -1, Q) * r2 % Q if x else 0 for x in a]
+
+
+def test_tower_inverse_on_the_host_equals_plain(harness):
+    """fq12w.cuh tower_inv on an Fq12, an Fq6, an Fq2 and an Fq element
+    and on zero, against the plain version."""
+    rng = np.random.default_rng(58)
+    vals = [[int.from_bytes(rng.bytes(48), "little") % Q if i < w else 0
+             for i in range(12)] for w in (12, 6, 2, 1, 0)]
+    x = torch.from_numpy(np.stack([np.stack([F.to_limbs(v) for v in row])
+                                   for row in vals]))
+    wx = _limb_words(x)
+    out = np.zeros_like(wx)
+    harness.hh_tower_inv(_ptr(wx), _ptr(T.PROGRAM), _ptr(out),
+                         ctypes.c_longlong(len(wx)))
+    assert np.array_equal(out, _limb_words(T.tower_inv_plain(x)))
+
+
+def test_final_exp_on_the_host_equals_plain(harness):
+    """fq12w.cuh final_exp_row at P = 17 (two of the kernel's chunks of
+    15 inputs) on a QC's two real Miller values followed by ones (verdict
+    true), on random values (false) and on a row with a zero value."""
+    sk, pk = ref.key_gen(b"\x07" * 32)
+    msg = b"\x35" * 32
+    neg_g1 = ref.g1_neg(ref.g1_generator())
+    qc = [ref.miller_loop(ref._twist(ref.hash_to_g2(msg)),
+                          ref._cast_g1_fq12(pk)),
+          ref.miller_loop(ref._twist(ref.sign(sk, msg)),
+                          ref._cast_g1_fq12(neg_g1))] + [ref.FQ12_ONE] * 15
+    rnd = _host_elems(np.random.default_rng(59), 17)
+    fs = torch.stack([_mont(qc), _mont(rnd), _mont([(0,) * 12] + rnd[1:])])
+    want_ok, want = T.final_exp_plain(fs)
+    assert want_ok.tolist() == [True, False, False]
+    x = fs.numpy().copy()
+    out = np.zeros((len(x), 12, 48), np.int32)
+    ok = np.zeros(len(x), np.int32)
+    consts = T._mont_words(T.FROB_CONSTS)
+    d1 = np.asarray(T.E1_DIGITS, np.int32)
+    dx = np.asarray(T.X_DIGITS, np.int32)
+    harness.hh_final_exp(_ptr(x), x.shape[1], _ptr(T.PROGRAM), _ptr(consts),
+                         _ptr(d1),
+                         len(d1), _ptr(dx), len(dx), _ptr(out), _ptr(ok),
+                         ctypes.c_longlong(len(x)))
+    assert np.array_equal(out, want.numpy())
+    assert ok.tolist() == [1, 0, 0]

@@ -78,11 +78,12 @@ def test_ping_verify_bulk_and_stats(sidecar):
                                      "decompress", "point_multiples",
                                      "rlc_scalars", "rlc_reduce",
                                      "fq12_mul", "miller_accumulate",
-                                     "fq12_pow", "fq_pow", "fq12_hard_pow"}
+                                     "fq12_pow", "fq_pow", "fq12_hard_pow",
+                                     "final_exp"}
 
 
 def test_full_queue_answers_busy(sidecar, monkeypatch):
-    monkeypatch.setitem(service.QUEUE_CAP_SIGS, service.BULK, 2)
+    monkeypatch.setitem(sidecar.engine.queue_caps, service.BULK, 2)
     msgs, pks, sigs, _ = _votes(3, 3)
     with SidecarClient(port=sidecar.server_address[1], timeout=60) as client:
         with pytest.raises(SidecarOverloaded) as err:
@@ -92,8 +93,10 @@ def test_full_queue_answers_busy(sidecar, monkeypatch):
 
 
 def test_unserved_opcode_closes_the_connection(sidecar):
+    # Opcode 99 is none of the protocol's: the frame does not decode.
+    payload = proto._HDR.pack(99, 1, 0, 0)
     with socket.create_connection(sidecar.server_address, timeout=30) as s:
-        s.sendall(proto.encode_hello_request(1, "tenant-a"))
+        s.sendall(len(payload).to_bytes(4, "big") + payload)
         assert s.recv(64) == b""
 
 

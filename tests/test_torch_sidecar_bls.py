@@ -180,9 +180,11 @@ def test_warm_bls_flags_reach_the_boot(monkeypatch):
     monkeypatch.setattr(service, "serve", lambda *a, **k: calls.append(k))
     service.main(["--device", "cpu", "--warm-bls", "--warm-bls-multi", "5"])
     service.main(["--device", "cpu"])
+    rest = {"use_host": False, "committee": None, "client_rate": None,
+            "trace_path": None}
     assert calls == [
-        {"device": "cpu", "warm_bls": True, "warm_bls_multi": 5},
-        {"device": "cpu", "warm_bls": False, "warm_bls_multi": 0}]
+        {"device": "cpu", "warm_bls": True, "warm_bls_multi": 5, **rest},
+        {"device": "cpu", "warm_bls": False, "warm_bls_multi": 0, **rest}]
 
 
 def test_warmup_bls_verifies_one_statement_of_each_shape(monkeypatch):
