@@ -69,7 +69,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
      the flags the harness gives a 4-node run (hotstuff_tpu/harness/
      local.py), answering OP_HELLO and OP_CHAOS with the reference's
      bytes and a QC with the host reference's mask, its --trace spans
-     well formed.
+     well formed;
+ 10. the guard drill: the sidecar booted with --chaos (a 2 s warm grace
+     in its environment): QCs of 67 votes on the device; a scripted
+     wedge, a QC with a forged vote answered by the host ladder with the
+     expected mask, a bulk request of 1024 answered OP_BUSY during the
+     crash-only reboot, device routing again after the canary, fresh QCs
+     through the RLC kernels; a wedged BLS QC answered transient with the
+     reference's bytes, BLS QCs True from the card after the reboot; the
+     chaos knobs (shed, a 200 ms delay with a pipelined PING answered
+     first, drop, clear); two bulk requests back to back and OP_STATS
+     ``pipeline``.  A chaos wedge parks the launch's guard thread, not
+     the card.
 
 The line before the last is a JSON object listing the kernels with
 their launches on the main paths (over the requests, the probe's at
@@ -577,13 +588,14 @@ def sidecar_phase(dev, reqs, want):
             kern.reset_launches()
             for (label, bulk, (msgs, pks, sigs)), expect in zip(reqs, want):
                 before = dict(kern.LAUNCHES)
-                paths_before = dict(engine.stats.paths)
+                paths_before = dict(engine._sched.stats.paths)
                 t0 = time.monotonic()
                 mask = client.verify_batch(msgs, pks, sigs, bulk=bulk)
                 ms = (time.monotonic() - t0) * 1e3
                 delta = {k: kern.LAUNCHES[k] - before[k] for k in before}
-                paths = sorted(p for p, n in engine.stats.paths.items()
-                               if n > paths_before.get(p, 0))
+                paths = sorted(
+                    p for p, n in engine._sched.stats.paths.items()
+                    if n > paths_before.get(p, 0))
                 kind = f"{len(msgs)} sigs, {'+'.join(paths)}"
                 per_kind.setdefault(kind, delta)
                 bad = [i for i, (g, w) in enumerate(zip(mask, expect))
@@ -1594,6 +1606,305 @@ def wire_phase(reqs, want) -> None:
           flush=True)
 
 
+# Phase 10: the guard drill.  The sidecar runs in its own process with
+# --chaos, and a short warm grace so that a scripted wedge is declared in
+# seconds (the launches it judges take milliseconds on the card).
+GUARD_FLAGS = "--port {port} --chaos --committee 100 --warm-bls"
+GUARD_ENV = {"HOTSTUFF_TPU_GUARD_WARM_GRACE_S": "2",
+             "HOTSTUFF_TPU_GUARD_MIN_DEADLINE_S": "0.5"}
+
+
+def guard_phase() -> None:
+    """Phase 10: the launch guard, the chaos hook and the staged pipeline
+    on the card, through the wire of a sidecar booted as
+    ``python -m hotstuff_tpu_torch.sidecar --chaos --committee 100
+    --warm-bls``.  A chaos wedge parks the launch's guard thread on an
+    event: the guard's deadline, ladder, reboot and canary run as for a
+    hung device call, but the card itself is never hung.  Any failed
+    drill ends the run."""
+    import hashlib
+    import socket
+    import statistics
+
+    from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
+    from hotstuff_tpu_torch.offchain import bls12381 as bls
+    from hotstuff_tpu_torch.sidecar import protocol as proto
+    from hotstuff_tpu_torch.sidecar.client import (SidecarClient,
+                                                   SidecarOverloaded)
+
+    def seed(tag: str, i: int) -> bytes:
+        return hashlib.sha256(f"chip-smoke/{tag}/{i}".encode()).digest()
+
+    committee = [ref.generate_keypair(seed("replica", i)) for i in range(67)]
+    bls_keys = [bls.key_gen(seed("bls-replica", i)) for i in range(67)]
+    bls_pks = [bls.g1_encode(pk) for _, pk in bls_keys]
+
+    def qc(block: int, forged: int | None = None):
+        digest = seed("guard-block", block)
+        sigs = [ref.sign(sk, digest) for sk, _ in committee]
+        if forged is not None:
+            sigs[forged] = ref.sign(committee[forged][0], seed("forged", 9))
+        pks = [pk for _, pk in committee]
+        want = [ref.verify(pk, digest, s) for pk, s in zip(pks, sigs)]
+        return ([digest] * len(pks), pks, sigs), want
+
+    def bls_qc(block: int):
+        digest = seed("guard-bls-block", block)
+        return digest, [bls.g2_encode(bls.sign(sk, digest))
+                        for sk, _ in bls_keys]
+
+    def bulk(batch: int):
+        msgs = [seed(f"guard-tx{batch}", j) for j in range(1024)]
+        keys = [committee[j % len(committee)] for j in range(1024)]
+        return (msgs, [pk for _, pk in keys],
+                [ref.sign(sk, m) for (sk, _), m in zip(keys, msgs)])
+
+    t0 = time.monotonic()
+    qcs = [qc(b) for b in range(10)]
+    forged_qc = qc(20, forged=30)
+    bulks = [bulk(b) for b in range(3)]
+    bls_wedged, bls_after = bls_qc(0), bls_qc(1)
+    if not bls.verify_aggregate_common(
+            [pk for _, pk in bls_keys], bls_after[0],
+            bls.aggregate([bls.g2_decode(s) for s in bls_after[1]])):
+        fail("guard: the host reference rejects the BLS QC")
+    print(f"guard: signed 11 QCs, 3 bulk batches and 2 BLS QCs in "
+          f"{time.monotonic() - t0:.3f} s", flush=True)
+
+    work = os.path.join(REPO, "build", "chip")
+    os.makedirs(work, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = GUARD_FLAGS.format(port=port).split()
+    log_path = os.path.join(work, "sidecar-guard.log")
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "hotstuff_tpu_torch.sidecar", *argv],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, **GUARD_ENV})
+
+    def log_tail() -> str:
+        with open(log_path) as f:
+            return f.read()[-4000:]
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            fail(f"guard: {what}\n{log_tail()}")
+
+    def wait_for(pred, what: str, timeout: float = 120.0):
+        t = time.monotonic()
+        while time.monotonic() - t < timeout:
+            got = pred()
+            if got:
+                return got
+            time.sleep(0.002)
+        check(False, f"timed out waiting for {what}")
+
+    try:
+        while True:
+            try:
+                with SidecarClient(port=port, timeout=10) as c:
+                    c.ping()
+                break
+            except (ConnectionError, OSError):
+                check(proc.poll() is None and time.monotonic() - t0 < 600,
+                      f"the sidecar with {argv} did not come up")
+                time.sleep(0.5)
+        print(f"guard: sidecar {argv} with {GUARD_ENV} listening after "
+              f"{time.monotonic() - t0:.3f} s", flush=True)
+        with SidecarClient(port=port, timeout=120) as c, \
+                SidecarClient(port=port, timeout=120) as watch:
+            def timed(fn, *args, **kw):
+                t = time.monotonic()
+                out = fn(*args, **kw)
+                return out, (time.monotonic() - t) * 1e3
+
+            first = watch.stats()
+            check(first["guard"]["warm_boot"] and first["guard"]["device_ok"],
+                  f"boot guard section {first['guard']}")
+            # Ed25519 1: QCs of 67 votes on the device, before the wedge.
+            before_ms = []
+            for args, want in qcs[:5]:
+                mask, ms = timed(c.verify_batch, *args)
+                check(mask == want, "a QC's mask before the wedge")
+                before_ms.append(ms)
+            print(f"guard: Ed25519 QC of 67 before the wedge: median "
+                  f"{statistics.median(before_ms):.3f} ms "
+                  f"(each {[round(m, 3) for m in before_ms]})", flush=True)
+            # Ed25519 2: a wedge, then a QC with one forged vote, answered
+            # by the host ladder.
+            check(c.chaos(wedge=1), "OP_CHAOS wedge was refused")
+            box: dict = {}
+
+            def ladder_qc():
+                try:
+                    box["mask"], box["ms"] = timed(
+                        c.verify_batch, *forged_qc[0])
+                except Exception as e:       # reported below
+                    box["error"] = repr(e)
+
+            t_qc = threading.Thread(target=ladder_qc)
+            t_qc.start()
+            # Ed25519 3: bulk while the reboot runs gets OP_BUSY.
+            wait_for(lambda: watch.stats()["guard"]["rebooting"],
+                     "the reboot to start", timeout=60)
+            try:
+                watch.verify_batch(*bulks[0], bulk=True)
+                check(False, "bulk during the reboot was not shed")
+            except SidecarOverloaded as e:
+                busy_retry = e.retry_after_ms
+            check(busy_retry is not None and busy_retry >= 0,
+                  f"OP_BUSY retry-after {busy_retry}")
+            t_qc.join(120)
+            check("mask" in box, f"the wedged QC: {box}")
+            check(box["mask"] == forged_qc[1],
+                  "the host-answered mask differs from the expected mask")
+            print(f"guard: wedge -> host-answered mask of the forged QC "
+                  f"(exact, 1 invalid of 67) after {box['ms']:.3f} ms; "
+                  f"bulk 1024 during the reboot: OP_BUSY, retry-after "
+                  f"{busy_retry} ms", flush=True)
+            # Ed25519 4: device routing resumes after the canary.
+            g = wait_for(lambda: (lambda g: g if g["device_ok"]
+                                  and not g["rebooting"] else None)(
+                watch.stats()["guard"]), "the reboot to end")
+            check(g["reboots"] == 1 and g["canary_passes"] >= 1
+                  and g["wedges"] == 1, f"guard after recovery {g}")
+            print(f"guard: rebooted: last_reboot_wall_s "
+                  f"{g['last_reboot_wall_s']}, last_rewarm_wall_s "
+                  f"{g['last_rewarm_wall_s']}, canary passes "
+                  f"{g['canary_passes']}, host-fallback records "
+                  f"{g['host_fallback_records']}, busy replies "
+                  f"{g['busy_replies']}", flush=True)
+            # Ed25519 5: fresh QCs on the device again.
+            stats0 = watch.stats()
+            after_ms = []
+            for args, want in qcs[5:10]:
+                mask, ms = timed(c.verify_batch, *args)
+                check(mask == want, "a QC's mask after the reboot")
+                after_ms.append(ms)
+            stats1 = watch.stats()
+            moved = stats1["paths"].get("rlc", 0) - \
+                stats0["paths"].get("rlc", 0)
+            launched = {k: stats1["kernels"][k] - stats0["kernels"][k]
+                        for k in stats1["kernels"]}
+            check(moved == 5 and launched["rlc_scalars"] >= 5
+                  and launched["point_ladder"] >= 5
+                  and "host" not in stats1["paths"],
+                  f"QCs after the reboot: paths {stats1['paths']}, "
+                  f"launches {launched}")
+            print(f"guard: Ed25519 QC of 67 after recovery: median "
+                  f"{statistics.median(after_ms):.3f} ms (each "
+                  f"{[round(m, 3) for m in after_ms]}); paths.rlc +{moved}; "
+                  f"kernel launches {launched}", flush=True)
+
+            # BLS 1: a wedge, then a BLS QC: the transient reply.
+            check(c.chaos(wedge=1), "OP_CHAOS wedge was refused")
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=120) as s:
+                t = time.monotonic()
+                s.sendall(proto.encode_bls_votes_request(
+                    77, bls_wedged[0], bls_pks, bls_wedged[1]))
+                got = proto.read_frame(s)
+                bls_ms = (time.monotonic() - t) * 1e3
+            transient = proto.encode_reply(proto.OP_BLS_VERIFY_VOTES, 77,
+                                           [False])[4:]
+            check(got == transient, f"the wedged BLS QC answered {got!r}")
+            g = wait_for(lambda: (lambda g: g if g["device_ok"]
+                                  and not g["rebooting"]
+                                  and g["reboots"] == 2 else None)(
+                watch.stats()["guard"]), "the second reboot to end")
+            print(f"guard: wedge -> BLS QC answered transient ([False], "
+                  f"the reference's bytes) after {bls_ms:.3f} ms; "
+                  f"rebooted: last_reboot_wall_s {g['last_reboot_wall_s']},"
+                  f" last_rewarm_wall_s {g['last_rewarm_wall_s']}",
+                  flush=True)
+            # BLS 2: the same QC (not cached False) and one over a new
+            # digest are True from the card.
+            stats0 = watch.stats()
+            for digest, sigs in (bls_wedged, bls_after):
+                ok, ms = timed(c.bls_verify_votes, digest, bls_pks, sigs)
+                check(ok is True, "a BLS QC after the reboot")
+            stats1 = watch.stats()
+            launched = {k: stats1["kernels"][k] - stats0["kernels"][k]
+                        for k in ("miller_accumulate", "final_exp")}
+            check(launched == {"miller_accumulate": 2, "final_exp": 2},
+                  f"BLS QCs after the reboot launched {launched}")
+            print(f"guard: BLS QCs after recovery True from the card (the "
+                  f"second {ms:.3f} ms), kernel launches {launched}",
+                  flush=True)
+
+            # The chaos knobs.
+            check(c.chaos(shed=1), "OP_CHAOS shed was refused")
+            try:
+                c.verify_batch(*qcs[0][0])
+                check(False, "shed did not answer OP_BUSY")
+            except SidecarOverloaded:
+                pass
+            check(c.chaos(delay_ms=200), "OP_CHAOS delay was refused")
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=60) as s:
+                t = time.monotonic()
+                s.sendall(proto.encode_request(88, *qcs[0][0])
+                          + proto.encode_ping(89))
+                order = []
+                for _ in range(2):
+                    op, rid, _ = proto.decode_reply_raw(proto.read_frame(s))
+                    order.append((rid, (time.monotonic() - t) * 1e3))
+            check([r for r, _ in order] == [89, 88] and order[1][1] >= 200,
+                  f"delay_ms 200: replies {order}")
+            check(c.chaos(drop=1), "OP_CHAOS drop was refused")
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=60) as s:
+                s.sendall(proto.encode_request(90, *qcs[0][0]))
+                try:
+                    dropped = proto.read_frame(s) == b""
+                except (ConnectionError, OSError):
+                    dropped = True
+            check(dropped, "drop did not close the connection")
+            check(c.chaos(shed=3, drop=3, delay_ms=700),
+                  "OP_CHAOS shed, drop and delay were refused")
+            check(c.chaos(clear=True), "OP_CHAOS clear was refused")
+            mask, clear_ms = timed(c.verify_batch, *qcs[0][0])
+            check(mask == qcs[0][1] and clear_ms < 700,
+                  f"after clear: {clear_ms:.3f} ms")
+            print(f"guard: chaos shed -> OP_BUSY; delay_ms 200 -> the "
+                  f"pipelined PING at {order[0][1]:.3f} ms, the verify at "
+                  f"{order[1][1]:.3f} ms; drop -> connection closed; clear "
+                  f"-> a cached QC in {clear_ms:.3f} ms", flush=True)
+
+            # The staged pipeline: two bulk requests of 1024 back to back.
+            with socket.create_connection(("127.0.0.1", port),
+                                          timeout=120) as s:
+                t = time.monotonic()
+                s.sendall(proto.encode_request(
+                    91, *bulks[1], opcode=proto.OP_VERIFY_BULK)
+                    + proto.encode_request(
+                    92, *bulks[2], opcode=proto.OP_VERIFY_BULK))
+                replies = [proto.decode_reply_raw(proto.read_frame(s))
+                           for _ in range(2)]
+                pair_ms = (time.monotonic() - t) * 1e3
+            check(sorted(r[1] for r in replies) == [91, 92]
+                  and all(r[0] == proto.OP_VERIFY_BULK for r in replies),
+                  f"bulk pair replies {[r[:2] for r in replies]}")
+            stats = watch.stats()
+            pipe = stats["pipeline"]
+            print(f"guard: two bulk 1024 back to back in {pair_ms:.3f} ms; "
+                  f"pipeline {json.dumps(pipe, sort_keys=True)}; surge "
+                  f"derate {stats['surge']['derate']}", flush=True)
+            g = stats["guard"]
+            print(f"guard: OP_STATS guard {json.dumps(g, sort_keys=True)}",
+                  flush=True)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "hotstuff_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1681,6 +1992,11 @@ def main() -> int:
 
     # Phase 9: the wire, with the harness's flags.
     wire_phase(reqs, want)
+
+    # Phase 10: the guard drill.
+    t0 = time.monotonic()
+    guard_phase()
+    print(f"guard phase: {time.monotonic() - t0:.3f} s", flush=True)
 
     print(json.dumps({"kernels": rows + bls_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

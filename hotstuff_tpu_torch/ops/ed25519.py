@@ -189,6 +189,15 @@ _comb_host: np.ndarray | None = None
 _comb_device: dict = {}
 
 
+def drop_device_tables() -> None:
+    """Forget the device copies of the comb tables: the next call places
+    fresh ones.  The dict is rebound, not cleared, so a launch still
+    holding the old tensors never shares them with the next one (the
+    sidecar's crash-only reboot)."""
+    global _comb_device
+    _comb_device = {}
+
+
 def _host_pt_add(p, q):
     """Extended-coordinate add on python ints (table generation only)."""
     x1, y1, z1, t1 = p

@@ -62,6 +62,15 @@ def batch_from_limbs(limbs) -> list[int]:
 _constants: dict = {}
 
 
+def drop_device_tables() -> None:
+    """Forget the device copies of the constants: the next call places
+    fresh ones.  The dict is rebound, not cleared, so a launch still
+    holding the old tensors never shares them with the next one (the
+    sidecar's crash-only reboot)."""
+    global _constants
+    _constants = {}
+
+
 def _cached_tensor(key, values, device) -> torch.Tensor:
     """A small constant tensor, made once per device (the ops run
     thousands of times per verify; a fresh host-to-device copy each

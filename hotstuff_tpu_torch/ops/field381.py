@@ -75,6 +75,15 @@ _R2_LIMBS = to_limbs(R2_MOD_Q)
 _constants: dict = {}
 
 
+def drop_device_tables() -> None:
+    """Forget the device copies of the constants: the next call places
+    fresh ones.  The dict is rebound, not cleared, so a launch still
+    holding the old tensors never shares them with the next one (the
+    sidecar's crash-only reboot)."""
+    global _constants
+    _constants = {}
+
+
 def cached(key, values, device) -> torch.Tensor:
     """A small int32 constant tensor, made once per device (the ops run
     thousands of times per check; a fresh host-to-device copy each time

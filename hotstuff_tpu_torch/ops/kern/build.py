@@ -56,6 +56,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_lib_hash: str | None = None  # source_hash() of the loaded library
 build_seconds: float | None = None  # wall time of this process's build
 
 
@@ -134,16 +135,23 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed (thread-safe)."""
-    global _lib
+    global _lib, _lib_hash
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            path = build()
+            lib = ctypes.CDLL(str(path))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = lib
+            _lib, _lib_hash = lib, path.parent.name
         return _lib
+
+
+def loaded() -> bool:
+    """True when this process has loaded the library of the current
+    sources, so no launch can wait on a build."""
+    return _lib is not None and _lib_hash == source_hash()
 
 
 def build_log() -> str:

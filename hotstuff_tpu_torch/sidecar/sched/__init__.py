@@ -1,8 +1,19 @@
-"""The verify scheduler's single-device routing, admission caps and
-telemetry (the port of hotstuff_tpu/sidecar/sched, cut to what one card
-serves)."""
+"""The verify scheduler of one card: the port of hotstuff_tpu/sidecar/sched.
 
-from .scheduler import size_queue_caps  # noqa: F401
+  classes.py    request classes (latency / bulk), Pending/Launch/queue types
+  tenantq.py    per-tenant lanes drained in deficit round-robin order
+  shapes.py     launch cap, padded capacity and verify-path routing
+  scheduler.py  admission, strict-priority coalescing, pad-fill, carry-over
+  stats.py      per-launch telemetry behind the OP_STATS wire request
+  surge.py      overlap-driven bulk derate, bulk-before-latency shedding,
+                retry-after hints
+"""
+
+from .classes import BULK, LATENCY, Launch, Pending, \
+    class_of_opcode  # noqa: F401
+from .scheduler import BULK_QUEUE_CAP_SIGS, LATENCY_QUEUE_CAP_SIGS, \
+    Scheduler, size_queue_caps  # noqa: F401
 from .shapes import PATH_HOST, PATH_PER_SIG, PATH_RLC, PATH_RLC_BISECT, \
-    RLC_MIN_LAUNCH, route  # noqa: F401
+    RLC_MIN_LAUNCH, ShapeRegistry  # noqa: F401
 from .stats import SchedStats  # noqa: F401
+from .surge import AdmissionController  # noqa: F401

@@ -1,42 +1,45 @@
 """The verify sidecar on the card: the port of
-hotstuff_tpu/sidecar/service.py, cut to the main path.
+hotstuff_tpu/sidecar/service.py.
 
 A long-lived process owns the device.  Connection threads decode frames
-(``protocol.py``, unchanged wire protocol v6) and admit verify requests
-into two bounded class queues; one engine thread takes launches, latency
-class first.  Ed25519 requests coalesce up to the launch cap of
-``MAX_SUBBATCH`` signatures, run the routed verify program (the one-MSM
-RLC program or the per-signature program, ``sched/shapes.route``) and
-fan the mask back out.  BLS requests (``scheme=bls`` committees) run one
-at a time, uncoalesced: the aggregate checks of ops/bls381.py on the
-device, signing on the host.
+(``protocol.py``, unchanged wire protocol v6) and offer verify requests
+to the two-class scheduler (``sched/``: strict latency priority, per-
+tenant lanes, bulk pad-fill, surge admission).  One engine thread asks
+the scheduler for launches and runs them through a depth-2 pipeline:
+one pack worker stages launch N+1 on the host (verdict-cache lookups,
+dedup, routing, preparation, the host-to-device copies) while up to two
+launches execute.  Ed25519 launches run the routed verify program (the
+one-MSM RLC program or the per-signature program) and fan the mask back
+out; a BLS request runs alone, after the Ed25519 launches in flight.
+
+Every wait on the device goes through the launch guard (``guard.py``)
+when one is attached, as ``serve()`` always does: a launch that overruns
+its deadline gets the degradation ladder (latency requests answered from
+the host path with the device's masks, bulk requests OP_BUSY, the
+records quarantined), a BLS launch the transient reply, and the engine
+reboots crash-only: it drops the device tables, re-warms, and routes to
+the device again only after a canary launch passes.  Repeat offenders
+are bisected for poison and verified on the host from then on.
 
 Served opcodes: OP_PING, OP_VERIFY_BATCH (latency class: QC/TC votes),
-OP_VERIFY_BULK (bulk class: mempool batches), OP_STATS, and, in the
-latency class, OP_BLS_VERIFY_VOTES (a QC's per-vote signatures over one
-digest), OP_BLS_VERIFY_AGG (one aggregate signature), OP_BLS_VERIFY_MULTI
-(a TC: per-vote signatures over distinct digests) and OP_BLS_SIGN.
-OP_HELLO registers the connection's tenant (at most
-``TENANT_REGISTRY_CAP`` distinct ones; past that the connection closes)
-and echoes it, as the reference does; the tenant is kept per connection
-only: scheduling stays in one lane per class, shared by every tenant,
-until the tenant lanes are ported (ROADMAP Queue A item 4).  OP_CHAOS is
-answered [0], refused: the fault-injection hook (``--chaos``) is not
-ported.  A frame that does not decode closes the connection.
+OP_VERIFY_BULK (bulk class: mempool batches), OP_STATS, OP_HELLO (the
+connection's tenant, at most ``TENANT_REGISTRY_CAP`` distinct ones),
+OP_CHAOS (``--chaos``: delay, drop, shed and wedge; answered [0],
+refused, without it), and, in the latency class, OP_BLS_VERIFY_VOTES,
+OP_BLS_VERIFY_AGG, OP_BLS_VERIFY_MULTI and OP_BLS_SIGN.  A frame that
+does not decode closes the connection.
 
 ``--host-crypto`` verifies on the host, with no device and no kernel
 build: Ed25519 with the copied ``crypto/ref_ed25519``, the BLS opcodes
-with the copied ``offchain/bls12381`` (the reference's ``use_host``
-engine).  ``--trace PATH`` appends the reference's sidecar spans
-(obs/spans.py): admit, queue, pack, dispatch, device and reply.
-
-There is no launch guard yet: a BLS check runs on the engine thread
-without a deadline, so a hung device call parks the engine (the JAX
-package runs BLS under its guard, hotstuff_tpu/sidecar/guard.py).
+with the copied ``offchain/bls12381``.  ``--trace PATH`` appends the
+reference's sidecar spans (obs/spans.py): admit, queue, pack, dispatch,
+device and reply.  ``--tcp HOST:PORT`` binds a second listener on the
+same engine.
 
 Run:  python -m hotstuff_tpu_torch.sidecar --port 7100 [--device cuda|cpu]
-          [--host-crypto] [--warm-bls] [--warm-bls-multi N]
+          [--host-crypto] [--warm-bls] [--warm-bls-multi N] [--chaos]
           [--committee N] [--client-rate TPS] [--trace PATH]
+          [--tcp HOST:PORT]
 """
 
 from __future__ import annotations
@@ -49,22 +52,22 @@ import socket
 import socketserver
 import threading
 from base64 import b64encode
+from concurrent import futures as cfut
 from time import monotonic
+
+import numpy as np
 
 from . import protocol as proto
 from . import sched as vsched
+from .guard import (BusyReply, LaunchDeadlines, LaunchGuard, WedgedLaunch,
+                    bisect_poison)
+from .sched import BULK, LATENCY
 from ..crypto.eddsa import MAX_SUBBATCH
 from ..obs.spans import Tracer
 from ..utils.device import resolve
+from ..utils.intmath import next_pow2
 
 log = logging.getLogger("sidecar")
-
-LATENCY = "latency"
-BULK = "bulk"
-
-# Requests answered with OP_BUSY carry this retry-after hint.
-RETRY_AFTER_MS = 50
-
 
 BLS_VERIFY_OPS = (proto.OP_BLS_VERIFY_AGG, proto.OP_BLS_VERIFY_VOTES,
                   proto.OP_BLS_VERIFY_MULTI)
@@ -76,9 +79,10 @@ BLS_PATHS = {proto.BlsAggRequest: "bls_agg", proto.BlsVotesRequest:
              "bls_votes", proto.BlsMultiRequest: "bls_multi",
              proto.BlsSignRequest: "bls_sign"}
 
-
-def class_of_opcode(opcode: int) -> str:
-    return BULK if opcode == proto.OP_VERIFY_BULK else LATENCY
+# The context tag a mempool admission-verify batch carries on the bulk
+# lane (the JAX package's crypto/txsign.INGRESS_CTX, which the C++ node
+# pins too); any other bulk request is offchain-fed.
+INGRESS_CTX = b"graftingress-tx-admission-ctx-v1"
 
 
 def _ctx_tag(request):
@@ -103,86 +107,192 @@ def _ctxs_kw(batch) -> dict:
     return {"ctxs": tags} if tags else {}
 
 
-def sigs_of(request) -> int:
-    """Signatures a request carries, the unit of the admission bounds
-    (a BLS aggregate counts its public keys, a signing request one)."""
-    if isinstance(request, proto.BlsSignRequest):
-        return 1
-    return len(request.pks)
+def _records(batch):
+    """The (msg, pk, sig) records of a launch's Ed25519 requests."""
+    return [rec for p in batch if not p.is_bls
+            for rec in zip(p.request.msgs, p.request.pks, p.request.sigs)]
 
 
-class Pending:
-    """One admitted request, its class, when it was admitted, and its
-    reply callback.  An Ed25519 reply takes the
-    mask, or None for an OP_BUSY answer; a BLS reply takes the verdict
-    list (or signature bytes), or None for a transient failure (sent as
-    [False], never cached)."""
+class ChaosState:
+    """The OP_CHAOS fault-injection hook (``--chaos``): a healthy sidecar
+    misbehaves in bounded, scripted ways, so a run can exercise the
+    clients' failure handling and the engine's guard without killing a
+    process.
 
-    __slots__ = ("request", "reply_fn", "cls", "enqueued_at")
+      ``delay_ms``  every verify reply is delayed this long (capped at
+                    MAX_DELAY_MS; 0 clears): a slow device
+      ``drop``      the next N verify requests close their connection
+      ``shed``      the next N verify requests get OP_BUSY
+      ``wedge``     the next N device launches hang past their guard
+                    deadline: the whole ladder, reboot and canary run
+      ``clear``     reset everything
 
-    def __init__(self, request, reply_fn, cls: str):
-        self.request = request
-        self.reply_fn = reply_fn
-        self.cls = cls
-        self.enqueued_at = monotonic()
+    Only verify and sign opcodes are touched: PING stays honest for
+    readiness probes, and OP_STATS / OP_CHAOS stay reachable so a
+    degraded sidecar can be observed and restored.  A delayed reply goes
+    onto a timer, so a PING pipelined behind it answers at once."""
+
+    # Below the C++ client's Ed25519 reply deadline (1000 ms): a capped
+    # delay models a slow sidecar the client still waits out, never an
+    # outage.
+    MAX_DELAY_MS = 750
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.delay_ms = 0
+        self.shed_left = 0
+        self.drop_left = 0
+        self.wedge_left = 0
+
+    def configure(self, spec: dict) -> dict:
+        """Apply one OP_CHAOS spec; raises ValueError on unknown keys or
+        values that are not ints >= 0 (the connection closes, as for any
+        malformed frame)."""
+        unknown = set(spec) - {"delay_ms", "shed", "drop", "wedge",
+                               "clear"}
+        if unknown:
+            raise ValueError(f"unknown chaos key(s) {sorted(unknown)}")
+        vals = {}
+        for key in ("delay_ms", "shed", "drop", "wedge"):
+            if key in spec:
+                v = spec[key]
+                if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                    raise ValueError(f"chaos {key} must be an int >= 0")
+                vals[key] = v
+        with self._lock:
+            if spec.get("clear"):
+                self.delay_ms = self.shed_left = self.drop_left = 0
+                self.wedge_left = 0
+            if "delay_ms" in vals:
+                self.delay_ms = min(vals["delay_ms"], self.MAX_DELAY_MS)
+            if "shed" in vals:
+                self.shed_left = vals["shed"]
+            if "drop" in vals:
+                self.drop_left = vals["drop"]
+            if "wedge" in vals:
+                self.wedge_left = vals["wedge"]
+            applied = {"delay_ms": self.delay_ms, "shed": self.shed_left,
+                       "drop": self.drop_left, "wedge": self.wedge_left}
+        log.warning("chaos hook configured: %s", applied)
+        return applied
+
+    def take_wedge(self) -> bool:
+        """Consume one scripted wedge; the engine calls it per launch,
+        since a wedge is a device fault that hits whatever runs next."""
+        with self._lock:
+            if self.wedge_left > 0:
+                self.wedge_left -= 1
+                return True
+            return False
+
+    def verify_action(self):
+        """Consume the chaos decision for one verify/sign request ->
+        (drop: bool, shed: bool, delay_s: float)."""
+        with self._lock:
+            if self.drop_left > 0:
+                self.drop_left -= 1
+                return True, False, 0.0
+            shed = self.shed_left > 0
+            if shed:
+                self.shed_left -= 1
+            return False, shed, self.delay_ms / 1e3
 
 
 class VerifyEngine:
-    """Owns the device; one engine thread drains the class queues.
+    """Owns the device; one engine thread drains the scheduler.
 
     ``use_host`` verifies every request on the host instead (no device);
     ``committee`` and ``client_rate`` size the class queues
-    (sched.size_queue_caps); ``tracer`` receives the stage spans."""
+    (sched.size_queue_caps); ``tracer`` receives the stage spans;
+    ``guard`` supervises every device wait (None runs bare); ``chaos``
+    is the OP_CHAOS state whose ``wedge`` knob reaches the launches;
+    ``rewarm_fn`` re-runs the boot's warm-up during a reboot."""
 
     # Bounded FIFO of (msg, pk, sig) -> verdict.
     VERDICT_CACHE_CAP = 64 * 1024
 
+    # Ed25519 launches in flight before the oldest result is fetched.
+    # On top of them sits one pack slot: while up to two launches run,
+    # the host side of the next is already staging.
+    PIPELINE_DEPTH = 2
+
     def __init__(self, device=None, *, use_host: bool = False,
                  committee: int | None = None,
                  client_rate: int | None = None,
-                 tracer: Tracer | None = None):
-        self.use_host = use_host
+                 tracer: Tracer | None = None, guard=None, chaos=None,
+                 rewarm_fn=None):
+        self._use_host = use_host
         self.device = None if use_host else resolve(device)
-        # Admission bounds per class, in queued signatures: a full queue
-        # answers OP_BUSY instead of growing.
-        self.queue_caps = dict(zip((LATENCY, BULK), vsched.size_queue_caps(
-            committee, client_rate)))
+        self._shapes = vsched.ShapeRegistry(use_host=use_host,
+                                            committee=committee)
+        lat_cap, bulk_cap = vsched.size_queue_caps(committee, client_rate)
+        self._sched = vsched.Scheduler(shapes=self._shapes,
+                                       latency_cap_sigs=lat_cap,
+                                       bulk_cap_sigs=bulk_cap,
+                                       committee=committee)
         self._tracer = tracer or Tracer.disabled()
-        self.stats = vsched.SchedStats()
-        self._queues = {LATENCY: collections.deque(),
-                        BULK: collections.deque()}
-        self._queued_sigs = {LATENCY: 0, BULK: 0}
-        self._cond = threading.Condition()
-        self._stopped = False
         # Validity is a pure function of the record bytes, so verdicts
-        # are cached; the engine thread is the only writer, connection
-        # threads read it for the cached fast path.
+        # are cached.  Writers are the guard's launch threads (an
+        # abandoned launch may complete late, beside a fresh one), so
+        # inserts take the lock; readers (connection threads, the pack
+        # worker) read without it.
         self._verdicts: dict = {}
-        self._thread = threading.Thread(target=self._run, daemon=True,
-                                        name="verify-engine")
+        self._verdicts_lock = threading.Lock()
+        # Records answered from the cache, deduped inside one launch, and
+        # verified (OP_STATS ``dedup``).
+        self._dedup_cache_hits = 0
+        self._dedup_inbatch_hits = 0
+        self._dedup_misses = 0
+        self._guard = guard
+        self._chaos = chaos
+        self._rewarm_fn = rewarm_fn
+        self._reboot_lock = threading.Lock()
+        self._device_ok = True
+        self._rebooting = False
+        # Set on the reboot thread while rewarm_fn runs: its verifies
+        # must reach the device although live traffic is host-routed.
+        self._rewarm_tls = threading.local()
+        # One worker keeps pack order equal to the scheduler's order.
+        self._pack_pool = cfut.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="verify-pack")
+        self._inflight_n = 0  # launches executing on the device
+        self._stopped = threading.Event()
+        self._thread = threading.Thread(target=self._run_staged,
+                                        daemon=True, name="verify-engine")
         self._thread.start()
 
-    # -- admission ---------------------------------------------------------
+    # -- admission (connection threads) -------------------------------------
 
-    def submit(self, request, reply_fn, cls: str = LATENCY) -> bool:
-        """Admit one verify request; False (nothing retained, the caller
-        replies OP_BUSY) when its class queue is full."""
-        n = sigs_of(request)
-        with self._cond:
-            ok = self._queued_sigs[cls] + n <= self.queue_caps[cls]
-            if ok:
-                self._queues[cls].append(Pending(request, reply_fn, cls))
-                self._queued_sigs[cls] += n
-                self.stats.note_admitted(cls)
-                self._cond.notify()
-            else:
-                self.stats.note_queue_full(cls)
+    def submit(self, request, reply_fn, cls: str = LATENCY,
+               is_bls: bool | None = None,
+               tenant: str | None = None) -> bool:
+        """Offer one request to its class queue.  False means nothing was
+        retained and the caller replies OP_BUSY; never blocks."""
+        if is_bls is None:
+            is_bls = isinstance(request, BLS_REQUESTS)
+        if cls == BULK and not is_bls:
+            self._sched.stats.note_bulk_source(
+                getattr(request, "ctx", None) == INGRESS_CTX,
+                len(request.msgs))
+        if self._rebooting and cls == BULK and not is_bls:
+            # The device leg is re-warming and the host path is kept for
+            # consensus traffic: bulk gets an honest OP_BUSY now.
+            if self._guard is not None:
+                self._guard.stats.note_busy()
+            return False
+        ok = self._sched.offer(request, reply_fn, cls=cls, is_bls=is_bls,
+                               tenant=tenant)
         if self._tracer.enabled:
             self._tracer.event("admit", rid=request.request_id, cls=cls,
                                ok=ok,
                                n=len(getattr(request, "msgs", ()) or ())
                                or 1, **_ctx_kw(request))
         return ok
+
+    def retry_after_ms(self, cls: str) -> int:
+        """The retry-after hint of an OP_BUSY reply for class ``cls``
+        (the surge controller's drain estimate)."""
+        return self._sched.retry_after_ms(cls)
 
     def cached_verdicts(self, request):
         """[bool] when every record of the request has a cached verdict,
@@ -193,7 +303,10 @@ class VerifyEngine:
             if v is None:
                 return None
             out.append(v)
-        return out or None
+        if out:
+            with self._verdicts_lock:
+                self._dedup_cache_hits += len(out)
+        return out
 
     @staticmethod
     def bls_cache_key(req):
@@ -236,52 +349,111 @@ class VerifyEngine:
         return None if v is None else [v]
 
     def stats_snapshot(self) -> dict:
+        """The OP_STATS reply body: the reference's sections (the XLA
+        ``compile`` tracker and the cadence ring's section excepted),
+        plus the device and the kernel launch counts."""
         from ..ops import kern
 
-        snap = self.stats.snapshot()
-        snap["device"] = "host" if self.use_host else str(self.device)
-        snap["kernels"] = dict(kern.LAUNCHES)
+        snap = self._sched.stats.snapshot()
+        snap["shapes"] = self._shapes.snapshot()
+        snap["queue_caps"] = self._sched.queue_caps()
         snap["verdict_cache_entries"] = len(self._verdicts)
+        with self._verdicts_lock:
+            hits = self._dedup_cache_hits + self._dedup_inbatch_hits
+            seen = hits + self._dedup_misses
+            snap["dedup"] = {
+                "cache_hits": self._dedup_cache_hits,
+                "inbatch_hits": self._dedup_inbatch_hits,
+                "misses": self._dedup_misses,
+                "hit_rate": round(hits / seen, 4) if seen else 0.0,
+            }
+        snap["tenant_caps"] = self._sched.tenant_caps()
+        occupancy = self._sched.tenant_occupancy()
+        if any(occupancy.values()):
+            snap["tenant_occupancy"] = occupancy
+        if self._guard is not None:
+            g = self._guard.snapshot()
+            g["device_ok"] = self._device_ok
+            g["rebooting"] = self._rebooting
+            snap["guard"] = g
+        snap["device"] = "host" if self._use_host else str(self.device)
+        snap["kernels"] = dict(kern.LAUNCHES)
         return snap
 
     def stop(self):
-        with self._cond:
-            self._stopped = True
-            self._cond.notify_all()
+        self._stopped.set()
+        self._sched.wake()
         self._thread.join(timeout=60)
 
     # -- engine thread -------------------------------------------------------
 
-    def _next_launch(self):
-        """Block until work or stop; the latency class drains first, and
-        a launch coalesces whole Ed25519 requests up to the launch cap (a
-        single larger request goes alone and is sliced by the
-        per-signature path).  A BLS request is a launch of its own."""
-        with self._cond:
-            while not self._stopped and not any(self._queues.values()):
-                self._cond.wait(timeout=0.25)
-            if self._stopped:
-                return None
-            cls = LATENCY if self._queues[LATENCY] else BULK
-            q = self._queues[cls]
-            batch = [q.popleft()]
-            total = sigs_of(batch[0].request)
-            if not isinstance(batch[0].request, BLS_REQUESTS):
-                while (q and not isinstance(q[0].request, BLS_REQUESTS)
-                       and total + len(q[0].request.msgs) <= MAX_SUBBATCH):
-                    total += len(q[0].request.msgs)
-                    batch.append(q.popleft())
-            self._queued_sigs[cls] -= total
-        self.stats.note_launch(cls, total)
-        if self._tracer.enabled:
-            # One span per launched request: admission -> launch.
-            now = monotonic()
-            for p in batch:
-                self._tracer.event(
-                    "queue", dur_ms=(now - p.enqueued_at) * 1e3,
-                    rid=p.request.request_id, cls=p.cls,
-                    **_ctx_kw(p.request))
-        return batch
+    def _run_staged(self):
+        packing = collections.deque()   # (batch, Future[dispatch_fn])
+        inflight = collections.deque()  # (batch, fetch_fn, dispatched_at,
+                                        #  guard_key)
+        while not self._stopped.is_set():
+            # 1) A finished pack goes onto the device when there is room;
+            #    an unfinished one is waited out in step 3's bounded
+            #    slices, so stop() stays observable mid-pack.
+            if packing and len(inflight) < self.PIPELINE_DEPTH and \
+                    packing[0][1].done():
+                self._dispatch_one(packing, inflight)
+                continue
+            # 2) A free pack slot admits the next scheduler launch.
+            if not packing:
+                idle = not inflight
+                launch = self._sched.next_launch(timeout=0.25) if idle \
+                    else self._sched.next_launch(block=False)
+                if launch is not None:
+                    self._trace_queue_waits(launch)
+                    if launch.kind == "bls":
+                        # A BLS request runs alone, after the Ed25519
+                        # launches in flight drain.
+                        (item,) = launch.items
+                        while inflight:
+                            self._drain_one(inflight)
+                        tags = _ctx_kw(item.request) \
+                            if self._tracer.enabled else {}
+                        with self._tracer.span(
+                                "device", kind="bls",
+                                rid=item.request.request_id, **tags):
+                            self._execute_bls(item)
+                        continue
+                    batch = launch.items
+                    packing.append(
+                        (batch, self._pack_pool.submit(self._pack, batch)))
+                    continue
+                if idle:
+                    continue
+            # 3) Pipeline full or queue empty: fetch the oldest launch, or
+            #    wait out the pack in bounded slices.
+            if inflight:
+                self._drain_one(inflight)
+            elif packing:
+                try:
+                    packing[0][1].exception(timeout=0.25)
+                except cfut.TimeoutError:
+                    pass
+        # Shutdown: every request taken from the queues gets its reply,
+        # and requests still queued are answered OP_BUSY.
+        while packing:
+            self._dispatch_one(packing, inflight)
+        while inflight:
+            self._drain_one(inflight)
+        self._pack_pool.shutdown(wait=False)
+        while (launch := self._sched.next_launch(block=False)) is not None:
+            for p in launch.items:
+                p.reply_fn(None)
+
+    def _trace_queue_waits(self, launch):
+        """One ``queue`` span per launched request: admission -> launch."""
+        if not self._tracer.enabled:
+            return
+        now = monotonic()
+        for p in launch.items:
+            self._tracer.event("queue", dur_ms=(now - p.enqueued_at) * 1e3,
+                               rid=p.request.request_id, cls=p.cls,
+                               **_ctx_kw(p.request))
 
     def _trace_replies(self, batch):
         if not self._tracer.enabled:
@@ -290,63 +462,283 @@ class VerifyEngine:
             self._tracer.event("reply", rid=p.request.request_id,
                                cls=p.cls, **_ctx_kw(p.request))
 
-    def _run(self):
-        while True:
-            batch = self._next_launch()
-            if batch is None:
-                break
-            if isinstance(batch[0].request, BLS_REQUESTS):
-                item = batch[0]
-                tags = _ctx_kw(item.request) if self._tracer.enabled else {}
-                with self._tracer.span("device", kind="bls",
-                                       rid=item.request.request_id, **tags):
-                    self._execute_bls(item)
-                continue
-            try:
-                fetch = self._pack(batch)()
-                dispatched_at = monotonic()
-                if self._tracer.enabled:
-                    self._tracer.event("dispatch", reqs=len(batch),
-                                       **_ctxs_kw(batch))
-                mask = fetch()
-            except Exception:
-                # A failed launch is no verdict: every request of it is
-                # answered OP_BUSY, and the node verifies on the host.
-                log.exception("verify launch failed")
-                for p in batch:
-                    p.reply_fn(None)
-                self._trace_replies(batch)
-                continue
-            if self._tracer.enabled:
-                self._tracer.event(
-                    "device", dur_ms=(monotonic() - dispatched_at) * 1e3,
-                    reqs=len(batch),
-                    sigs=sum(len(p.request.msgs) for p in batch),
-                    **_ctxs_kw(batch))
-            off = 0
-            for p in batch:
-                n = len(p.request.msgs)
-                p.reply_fn([bool(b) for b in mask[off:off + n]])
-                off += n
-            self._trace_replies(batch)
-        # Shutdown: requests still queued are answered OP_BUSY.
-        with self._cond:
-            left = [p for q in self._queues.values() for p in q]
-            for q in self._queues.values():
-                q.clear()
-        for p in left:
+    def _fail_batch(self, batch, what: str):
+        """A failed launch is no verdict: every request of it is answered
+        OP_BUSY, and the node verifies on the host."""
+        log.exception("verify %s failed", what)
+        for p in batch:
             p.reply_fn(None)
+        self._trace_replies(batch)
+
+    def _guard_key(self, batch) -> str:
+        """The guard's deadline key of a launch: the power-of-two bucket
+        of its deduped record count, the shape it executes, so N replicas
+        submitting one QC never train the deadline of a large unique
+        batch of the same raw size."""
+        return f"launch:{next_pow2(max(8, len(set(_records(batch)))))}"
+
+    def _guarded(self, key: str, thunk):
+        """Every engine-side wait on a staged dispatch or fetch goes
+        through here: with a guard attached the thunk runs on a
+        disposable launch thread under the shape's deadline, and a
+        WedgedLaunch means the launch was abandoned.  The chaos hook's
+        ``wedge`` swaps the thunk for a real hang on that thread, so the
+        drill runs the same supervisor path (the card itself is never
+        hung by it)."""
+        chaos = self._chaos
+        if chaos is not None and self._guard is not None and \
+                chaos.take_wedge():
+            log.warning("chaos: wedging launch %s", key)
+
+            def thunk():
+                threading.Event().wait()
+        if self._guard is None:
+            return thunk()
+        return self._guard.call(key, thunk)
+
+    def _dispatch_one(self, packing, inflight):
+        """Move the oldest staged pack onto the device (engine thread).
+        The wait for the pack (its host-to-device copies) and the
+        dispatch both run under the one guarded deadline."""
+        batch, fut = packing.popleft()
+        key = self._guard_key(batch)
+        try:
+            fetch = self._guarded(key, lambda: fut.result()())
+        except WedgedLaunch:
+            self._wedge_ladder(batch, key, stage="dispatch")
+            return
+        except Exception:
+            self._fail_batch(batch, "pack/dispatch")
+            return
+        if self._tracer.enabled:
+            self._tracer.event("dispatch", reqs=len(batch),
+                               **_ctxs_kw(batch))
+        inflight.append((batch, fetch, monotonic(), key))
+        self._inflight_n = len(inflight)
+
+    def _drain_one(self, inflight):
+        """Fetch the oldest launch and fan its mask out.  It counts as in
+        flight until its fetch returns: a pack that starts meanwhile runs
+        while the device still executes it (the reference drops it from
+        the count when the fetch starts, so such a pack read as open)."""
+        batch, fetch, dispatched_at, key = inflight[0]
+        try:
+            mask = self._guarded(key, fetch)
+        except WedgedLaunch:
+            self._wedge_ladder(batch, key, stage="fetch")
+            return
+        except Exception:
+            self._fail_batch(batch, "launch")
+            return
+        finally:
+            inflight.popleft()
+            self._inflight_n = len(inflight)
+        if self._tracer.enabled:
+            self._tracer.event(
+                "device", dur_ms=(monotonic() - dispatched_at) * 1e3,
+                reqs=len(batch),
+                sigs=sum(len(p.request.msgs) for p in batch),
+                **_ctxs_kw(batch))
+        off = 0
+        for p in batch:
+            n = len(p.request.msgs)
+            p.reply_fn([bool(b) for b in mask[off:off + n]])
+            off += n
+        self._trace_replies(batch)
+
+    # -- the wedge ladder and the crash-only reboot --------------------------
+
+    def _wedge_ladder(self, batch, key: str, stage: str):
+        """A launch overran its deadline:
+        1. latency requests of the batch are answered from the host path
+           (ref_ed25519, whose masks equal the device's);
+        2. bulk requests get BusyReply (OP_BUSY with the retry-after);
+        3. the batch's records are quarantined;
+        4. the crash-only reboot begins (the host path serves meanwhile).
+        The host answer runs off the engine thread, so the requests
+        queued behind the wedge drain concurrently."""
+        from ..crypto import ref_ed25519 as ref
+
+        guard = self._guard
+        log.error("guard: %s of launch %s WEDGED (deadline overrun); "
+                  "executing degradation ladder", stage, key)
+        pending = guard.quarantine.note_wedged(set(_records(batch)))
+        if pending:
+            log.error("guard: %d repeat-offender record(s) pending "
+                      "poison bisection", pending)
+
+        def answer():
+            for p in batch:
+                if p.cls == BULK:
+                    guard.stats.note_busy()
+                    p.reply_fn(BusyReply(self.retry_after_ms(BULK)))
+                    continue
+                mask = [bool(ref.verify(pk, m, s))
+                        for m, pk, s in zip(p.request.msgs,
+                                            p.request.pks,
+                                            p.request.sigs)]
+                guard.stats.note_host_fallback(len(mask))
+                p.reply_fn(mask)
+            self._trace_replies(batch)
+
+        threading.Thread(target=answer, daemon=True,
+                         name="guard-ladder").start()
+        self._begin_reboot()
+
+    def _begin_reboot(self):
+        """Start the crash-only reboot (repeat wedges while one runs fold
+        into it).  Device routing goes off first: until the canary
+        passes, _pack routes every launch to the host and bulk admission
+        answers OP_BUSY."""
+        with self._reboot_lock:
+            if self._rebooting:
+                return
+            self._rebooting = True
+            self._device_ok = False
+        threading.Thread(target=self._reboot, daemon=True,
+                         name="guard-reboot").start()
+
+    def _reboot(self):
+        """Tear down the device tables, re-warm (rewarm_fn), and resume
+        device routing only after a canary launch passes under the
+        guard's deadline.  Canary failures retry up to the guard's
+        max_reboots; past that the engine stays on the host path,
+        degraded, live and visible in OP_STATS (``device_ok`` false).
+        Nothing here waits on the card outside a guarded call: a
+        synchronize would wait on the abandoned launch too."""
+        guard = self._guard
+        t0 = monotonic()
+        attempts = 0
+        while not self._stopped.is_set():
+            attempts += 1
+            try:
+                self._teardown_device()
+                t_warm = monotonic()
+                if self._rewarm_fn is not None:
+                    self._rewarm_tls.active = True
+                    try:
+                        self._rewarm_fn()
+                    finally:
+                        self._rewarm_tls.active = False
+                guard.stats.note_rewarm(monotonic() - t_warm)
+                if self._canary():
+                    guard.stats.note_canary(True)
+                    break
+                guard.stats.note_canary(False)
+            except Exception:
+                log.exception("guard: reboot attempt %d failed", attempts)
+                guard.stats.note_canary(False)
+            if attempts >= guard.max_reboots:
+                log.error("guard: %d reboot attempt(s) failed the canary;"
+                          " staying on the host path", attempts)
+                with self._reboot_lock:
+                    self._rebooting = False
+                return
+        if self._stopped.is_set():
+            return
+        # Bisect the repeat offenders before device routing resumes, so
+        # the first launch after the reboot cannot re-wedge on them.
+        try:
+            self._bisect_quarantine()
+        except Exception:
+            log.exception("guard: poison bisection failed (pending "
+                          "records stay quarantined)")
+        with self._reboot_lock:
+            self._rebooting = False
+            self._device_ok = True
+        wall = monotonic() - t0
+        guard.stats.note_reboot(wall)
+        log.warning("guard: engine rebooted in %.3fs (canary passed "
+                    "after %d attempt(s)); device routing resumed",
+                    wall, attempts)
+
+    def _teardown_device(self):
+        """Drop the device-resident tables (the comb table, the field
+        constants, the Frobenius tables and exponent digits): each module
+        rebinds its cache, so a late completion of the abandoned launch
+        cannot touch what the next launch reads.  The kernel library
+        stays loaded; nothing is rebuilt."""
+        if self._use_host:
+            return
+        from ..ops import ed25519, field25519, field381
+
+        for mod in (ed25519, field25519, field381):
+            mod.drop_device_tables()
+
+    def _canary(self) -> bool:
+        """8 known-good signatures through the per-signature entry on the
+        device, under the guard's deadline: device routing resumes only
+        when this completes in time with an all-valid mask."""
+        from ..crypto import ref_ed25519 as ref
+
+        sk = bytes(range(32))
+        _, pk = ref.generate_keypair(sk)
+        msg = b"\x07" * 32
+        sig = ref.sign(sk, msg)
+        n = 8
+        try:
+            mask = self._guard.call(
+                "canary:8",
+                lambda: np.asarray(self._verify_submit(
+                    [msg] * n, [pk] * n, [sig] * n, force_device=True)()))
+        except WedgedLaunch:
+            log.error("guard: canary launch wedged")
+            return False
+        except Exception:
+            log.exception("guard: canary launch failed")
+            return False
+        return bool(mask.all())
+
+    def _bisect_quarantine(self):
+        """Probe subsets of the repeat-offender records through guarded
+        device launches until the poison set is isolated; poison records
+        are host-verified from then on (_pack's poison lane)."""
+        guard = self._guard
+        pending = guard.quarantine.pending()
+        if not pending:
+            return
+        log.warning("guard: bisecting %d repeat-offender record(s) for "
+                    "poison", len(pending))
+
+        def probe(subset):
+            msgs = [r[0] for r in subset]
+            pks = [r[1] for r in subset]
+            sigs = [r[2] for r in subset]
+            try:
+                guard.call(
+                    f"poison-probe:{len(subset)}",
+                    lambda: np.asarray(self._verify_submit(
+                        msgs, pks, sigs, force_device=True)()))
+                return True
+            except WedgedLaunch:
+                return False
+            except Exception:
+                # The launch completed (the device is not wedged); the
+                # record merely verifies False.
+                return True
+
+        poison = bisect_poison(pending, probe,
+                               max_probes=guard.max_bisect_probes)
+        n = guard.quarantine.resolve(poison)
+        if n:
+            log.error("guard: %d poison record(s) quarantined to the "
+                      "host path permanently", n)
+
+    # -- pack (the pack worker) ----------------------------------------------
 
     def _pack(self, batch):
-        """Host-side pack of one coalesced batch: verdict-cache lookups,
-        in-batch dedup, route selection and the verify program's own
-        pack (a ``--host-crypto`` engine verifies here, on the host).
-        Returns ``dispatch() -> fetch() -> mask``."""
+        """Host-side pack of one coalesced batch, on the pack worker:
+        verdict-cache lookups, in-batch dedup, the poison lane, route
+        selection and the verify program's own pack (preparation and the
+        host-to-device copies).  Returns ``dispatch() -> fetch() ->
+        mask``.  The copies go to the device's default stream, the
+        stream the guard's launch threads launch on, so they are ordered
+        before the kernels that read them."""
         from ..crypto import eddsa
 
         t0 = monotonic()
-        records = [rec for p in batch for rec in zip(
-            p.request.msgs, p.request.pks, p.request.sigs)]
+        hidden = self._inflight_n > 0  # a launch executes while we pack
+        records = _records(batch)
         cached = [self._verdicts.get(r) for r in records]
         # Each unique uncached record is verified once and fanned out to
         # every index that carried it.
@@ -355,38 +747,70 @@ class VerifyEngine:
             if c is None:
                 uniq.setdefault(records[i], []).append(i)
         uniq_records = list(uniq)
-        msgs = [r[0] for r in uniq_records]
-        pks = [r[1] for r in uniq_records]
-        sigs = [r[2] for r in uniq_records]
-        path = vsched.PATH_HOST if self.use_host \
-            else vsched.route(len(uniq_records))
-        if uniq_records:
-            self.stats.note_path(path)
+        n_cached = sum(1 for c in cached if c is not None)
+        if records:
+            with self._verdicts_lock:
+                self._dedup_cache_hits += n_cached
+                self._dedup_inbatch_hits += \
+                    len(records) - n_cached - len(uniq_records)
+                self._dedup_misses += len(uniq_records)
+        # The poison lane: records the bisection confirmed poison are
+        # verified on the host here; their neighbours still ride the
+        # device.  Placed last, so fetch order matches record order.
+        guard = self._guard
+        poisoned = []
+        device_records = uniq_records
+        if guard is not None and guard.quarantine.has_poison():
+            device_records = [r for r in uniq_records
+                              if not guard.quarantine.is_poisoned(r)]
+            if len(device_records) != len(uniq_records):
+                poisoned = [r for r in uniq_records
+                            if guard.quarantine.is_poisoned(r)]
+                uniq_records = device_records + poisoned
+                guard.stats.note_poison_host(len(poisoned))
+        msgs = [r[0] for r in device_records]
+        pks = [r[1] for r in device_records]
+        sigs = [r[2] for r in device_records]
+        stats = self._sched.stats
+        # While a reboot re-warms the device leg, everything verifies on
+        # the host, the path the ladder answers wedged batches from.
+        path = vsched.PATH_HOST if not self._device_ok \
+            else self._shapes.route(len(device_records))
+        if device_records:
+            stats.note_path(path)
 
         def on_bisect():
-            self.stats.note_path(vsched.PATH_RLC_BISECT)
+            stats.note_path(vsched.PATH_RLC_BISECT)
 
-        if not uniq_records:
+        if not device_records:
             dispatchers = []
         elif path == vsched.PATH_HOST:
-            from ..crypto import ref_ed25519 as ref
-
-            res = [ref.verify(pk, m, s) for m, pk, s in zip(msgs, pks, sigs)]
-            dispatchers = [lambda: (lambda: res)]
+            step = MAX_SUBBATCH
+            dispatchers = [
+                (lambda f=self._verify_submit(msgs[i:i + step],
+                                              pks[i:i + step],
+                                              sigs[i:i + step]): f)
+                for i in range(0, len(msgs), step)]
         elif path == vsched.PATH_RLC:
             dispatchers = [eddsa.verify_batch_rlc_pack(
                 msgs, pks, sigs, on_bisect=on_bisect, device=self.device)]
         else:
-            step = MAX_SUBBATCH
+            # A request larger than the launch cap (the coalescer bounds
+            # only additional requests) is sliced here.
+            step = self._shapes.launch_cap
             dispatchers = [eddsa.verify_batch_pack(
                 msgs[i:i + step], pks[i:i + step], sigs[i:i + step],
                 device=self.device) for i in range(0, len(msgs), step)]
+        if poisoned:
+            from ..crypto import ref_ed25519 as ref
+
+            res = [bool(ref.verify(pk, m, s)) for m, pk, s in poisoned]
+            dispatchers.append(lambda res=res: (lambda: res))
+        stats.note_pack(monotonic() - t0, hidden)
         if self._tracer.enabled:
-            # The port packs on the engine thread, so a pack is never
-            # hidden behind a launch in flight.
             self._tracer.event("pack", dur_ms=(monotonic() - t0) * 1e3,
                                reqs=len(batch), uniq=len(uniq_records),
-                               path=path, hidden=False, **_ctxs_kw(batch))
+                               path=path, hidden=hidden, **_ctxs_kw(batch))
 
         def dispatch():
             fetchers = [d() for d in dispatchers]
@@ -407,35 +831,84 @@ class VerifyEngine:
 
         return dispatch
 
+    def _verify_submit(self, msgs, pks, sigs, force_device: bool = False):
+        """Dispatch one slice; returns fetch() -> (n,) bool mask.  While
+        a reboot re-warms the device leg (``_device_ok`` false) it
+        verifies on the host, except on the reboot thread's re-warm and
+        for the canary and the poison probes (``force_device``)."""
+        if not msgs:
+            return lambda: np.zeros((0,), bool)
+        if self._use_host or (not self._device_ok and not force_device
+                              and not getattr(self._rewarm_tls,
+                                              "active", False)):
+            from ..crypto import ref_ed25519 as ref
+
+            res = np.array([ref.verify(p, m, s)
+                            for m, p, s in zip(msgs, pks, sigs)])
+            return lambda: res
+        from ..crypto import eddsa
+
+        return eddsa.verify_batch_submit(msgs, pks, sigs,
+                                         device=self.device)
+
+    def _verify(self, msgs, pks, sigs) -> np.ndarray:
+        return np.asarray(self._verify_submit(msgs, pks, sigs)())
+
+    def _cache_verdict(self, record, ok: bool):
+        # Bounded FIFO (dicts keep insertion order); False verdicts are
+        # cached too: validity is deterministic in the record bytes.
+        with self._verdicts_lock:
+            if record not in self._verdicts:
+                while len(self._verdicts) >= self.VERDICT_CACHE_CAP:
+                    self._verdicts.pop(next(iter(self._verdicts)))
+            self._verdicts[record] = ok
+
+    # -- BLS under the guard -------------------------------------------------
+
+    def _bls_guard_key(self, req) -> str:
+        """The guard's deadline key of a BLS request: kind x the power of
+        two of its key count (a 4-vote and a 100-vote check are
+        different work)."""
+        if isinstance(req, proto.BlsSignRequest):
+            return "bls:sign"
+        kind = {proto.BlsAggRequest: "agg",
+                proto.BlsVotesRequest: "votes",
+                proto.BlsMultiRequest: "multi"}[type(req)]
+        return f"bls:{kind}:{next_pow2(max(1, len(req.pks)))}"
+
     def _execute_bls(self, item):
-        """Run one BLS request on the engine thread and send its one
-        reply: the JAX package's reply contract
-        (hotstuff_tpu/sidecar/service.py _execute_bls), without its
-        launch guard.  Only verdicts the inner body marks cacheable --
-        pure functions of the request bytes: decode and subgroup
-        failures, completed checks -- enter the verdict cache; a
-        transient failure (an exception) replies None, which the
-        connection sends as [False] and nothing caches, since one
-        poisoned shared entry would reject a valid certificate for every
-        replica."""
+        """Run one BLS request under the guard and send its one reply,
+        on the engine thread, after the guarded call came back: a wedged
+        then completing check's late result is discarded by the guard.
+        Only verdicts the inner body marks cacheable (pure functions of
+        the request bytes: decode and subgroup failures, completed
+        checks) enter the verdict cache.  A wedge or an exception gets
+        the transient reply (None, sent as [False]) and caches nothing,
+        since one poisoned shared entry would reject a valid certificate
+        for every replica; a wedge also starts the reboot."""
         req = item.request
-        self.stats.note_path(BLS_PATHS[type(req)])
+        self._sched.stats.note_path(BLS_PATHS[type(req)])
         cache_key = self.bls_cache_key(req)
+        key = self._bls_guard_key(req)
+        payload, cacheable = None, False
         try:
-            payload, cacheable = self._execute_bls_inner(req, cache_key)
+            payload, cacheable = self._guarded(
+                key, lambda: self._execute_bls_inner(req, cache_key))
+        except WedgedLaunch:
+            log.error("guard: BLS launch %s WEDGED (deadline overrun); "
+                      "transient reply, starting crash-only reboot", key)
+            self._begin_reboot()
         except Exception:
             log.exception("BLS request failed")
-            payload, cacheable = None, False
         if cacheable and cache_key is not None and payload:
             self._cache_verdict(cache_key, bool(payload[0]))
         item.reply_fn(payload)
 
     def _execute_bls_inner(self, req, cache_key):
-        """The BLS request body; returns ``(payload, cacheable)``.  Every
-        verify runs the pairing check on ``self.device``: there is no
-        per-shape compile, so no shape needs warming and none falls back
-        to the host.  A ``--host-crypto`` engine runs the host reference's
-        check instead."""
+        """The BLS request body, on a guard launch thread; returns
+        ``(payload, cacheable)`` and never touches the connection.  Every
+        verify runs the pairing check on ``self.device`` (no shape needs
+        warming); a ``--host-crypto`` engine runs the host check."""
         from ..offchain import bls12381 as bls
         from ..ops import bls381 as dbls
 
@@ -460,7 +933,7 @@ class VerifyEngine:
             pks = [bls.g1_decode(p) for p in req.pks]
         except ValueError:
             return [False], True
-        if self.use_host:
+        if self._use_host:
             if isinstance(req, proto.BlsMultiRequest):
                 ok = bls.verify_aggregate(pks, req.msgs, agg)
             else:
@@ -473,12 +946,6 @@ class VerifyEngine:
                                               device=self.device)
         return [bool(ok)], True
 
-    def _cache_verdict(self, record, ok: bool):
-        if record not in self._verdicts:
-            while len(self._verdicts) >= self.VERDICT_CACHE_CAP:
-                self._verdicts.pop(next(iter(self._verdicts)))
-        self._verdicts[record] = ok
-
 
 class _Handler(socketserver.BaseRequestHandler):
     """Reader loop per connection; replies go through a writer thread so
@@ -488,6 +955,7 @@ class _Handler(socketserver.BaseRequestHandler):
         sock = self.request
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         engine: VerifyEngine = self.server.engine  # type: ignore[attr-defined]
+        chaos: ChaosState | None = self.server.chaos  # type: ignore
         outbox: "queue.Queue[bytes | None]" = queue.Queue(maxsize=1024)
 
         def writer():
@@ -519,7 +987,7 @@ class _Handler(socketserver.BaseRequestHandler):
                 if opcode == proto.OP_HELLO:
                     # Distinct tenants are bounded: past the cap the
                     # connection closes (never a hang), so a tenant-id
-                    # fuzzer cannot grow the registry without limit.
+                    # fuzzer cannot grow the lanes without limit.
                     if not self.server.register_tenant(req.tenant):
                         log.warning("HELLO refused: tenant registry full "
                                     "(tenant %r); closing connection",
@@ -529,12 +997,6 @@ class _Handler(socketserver.BaseRequestHandler):
                     outbox.put(proto.encode_hello_reply(req.request_id,
                                                         tenant))
                     continue
-                if opcode == proto.OP_CHAOS:
-                    # [0] = refused: the fault-injection hook is not
-                    # served, as the reference without --chaos.
-                    outbox.put(proto.encode_reply(opcode, req.request_id,
-                                                  [0]))
-                    continue
                 if opcode == proto.OP_PING:
                     outbox.put(proto.encode_reply(
                         proto.OP_PING, req.request_id, []))
@@ -543,6 +1005,52 @@ class _Handler(socketserver.BaseRequestHandler):
                     outbox.put(proto.encode_stats_reply(
                         req.request_id, engine.stats_snapshot()))
                     continue
+                if opcode == proto.OP_CHAOS:
+                    # [0] = refused (no --chaos); a malformed spec closes
+                    # the connection.
+                    if chaos is None:
+                        outbox.put(proto.encode_reply(
+                            opcode, req.request_id, [0]))
+                        continue
+                    try:
+                        chaos.configure(req.spec)
+                    except ValueError:
+                        log.exception("bad chaos spec; closing connection")
+                        return
+                    outbox.put(proto.encode_reply(
+                        opcode, req.request_id, [1]))
+                    continue
+                cls = vsched.class_of_opcode(opcode)
+                delay_s = 0.0
+                if chaos is not None:
+                    # Decided before the verdict-cache fast path, so a
+                    # scripted shed or drop is never masked by a hit.
+                    drop, shed, delay_s = chaos.verify_action()
+                    if drop:
+                        log.warning("chaos: dropping connection")
+                        return
+                    if shed:
+                        log.warning("chaos: forcing queue-full shed")
+                        outbox.put(proto.encode_busy_reply(
+                            req.request_id, engine.retry_after_ms(cls)))
+                        continue
+
+                def send(frame, _delay=delay_s):
+                    # A delayed reply goes onto a timer so this reader
+                    # keeps draining frames; put_nowait everywhere, so a
+                    # stalled connection drops its reply, never blocks.
+                    def enqueue():
+                        try:
+                            outbox.put_nowait(frame)
+                        except queue.Full:
+                            pass
+                    if _delay:
+                        t = threading.Timer(_delay, enqueue)
+                        t.daemon = True
+                        t.start()
+                    else:
+                        enqueue()
+
                 if opcode in (proto.OP_VERIFY_BATCH, proto.OP_VERIFY_BULK):
                     verdicts = engine.cached_verdicts(req)
                 elif opcode in BLS_VERIFY_OPS:
@@ -550,12 +1058,16 @@ class _Handler(socketserver.BaseRequestHandler):
                 else:                       # OP_BLS_SIGN
                     verdicts = None
                 if verdicts is not None:
-                    outbox.put(proto.encode_reply(
-                        opcode, req.request_id, verdicts))
+                    send(proto.encode_reply(opcode, req.request_id,
+                                            verdicts))
                     continue
 
-                def reply(result, _rid=req.request_id, _op=opcode):
-                    if _op == proto.OP_BLS_SIGN:
+                def reply(result, _rid=req.request_id, _op=opcode,
+                          _cls=cls, _send=send):
+                    if isinstance(result, BusyReply):
+                        frame = proto.encode_busy_reply(
+                            _rid, result.retry_after_ms)
+                    elif _op == proto.OP_BLS_SIGN:
                         frame = proto.encode_reply_raw(_op, _rid,
                                                        result or b"")
                     elif _op in BLS_VERIFY_OPS:
@@ -565,15 +1077,13 @@ class _Handler(socketserver.BaseRequestHandler):
                     elif result is not None:
                         frame = proto.encode_reply(_op, _rid, result)
                     else:
-                        frame = proto.encode_busy_reply(_rid, RETRY_AFTER_MS)
-                    try:
-                        outbox.put_nowait(frame)
-                    except queue.Full:
-                        pass
+                        frame = proto.encode_busy_reply(
+                            _rid, engine.retry_after_ms(_cls))
+                    _send(frame)
 
-                if not engine.submit(req, reply, cls=class_of_opcode(opcode)):
+                if not engine.submit(req, reply, cls=cls, tenant=tenant):
                     outbox.put(proto.encode_busy_reply(
-                        req.request_id, RETRY_AFTER_MS))
+                        req.request_id, engine.retry_after_ms(cls)))
         finally:
             outbox.put(None)
 
@@ -586,9 +1096,11 @@ class SidecarServer(socketserver.ThreadingTCPServer):
     # (the reference's bound).
     TENANT_REGISTRY_CAP = 256
 
-    def __init__(self, addr, engine: VerifyEngine):
+    def __init__(self, addr, engine: VerifyEngine,
+                 chaos: ChaosState | None = None):
         super().__init__(addr, _Handler)
         self.engine = engine
+        self.chaos = chaos
         self._tenants: set = set()
         self._tenants_lock = threading.Lock()
 
@@ -608,9 +1120,10 @@ class SidecarServer(socketserver.ThreadingTCPServer):
 def warmup(engine: VerifyEngine) -> None:
     """Build the kernels, check the toolchain with the probe kernel and
     place the comb table on the device before the socket binds, by
-    verifying one small batch through each program: until the socket
-    exists, nodes get ECONNREFUSED and verify on the host instead of
-    waiting on a build."""
+    verifying one small batch through each program (the per-signature
+    one through the engine's own entry): until the socket exists, nodes
+    get ECONNREFUSED and verify on the host instead of waiting on a
+    build.  The reboot's re-warm runs it again."""
     import torch
 
     from ..crypto import eddsa, ref_ed25519 as ref
@@ -625,7 +1138,7 @@ def warmup(engine: VerifyEngine) -> None:
     msg = b"\x01" * 32
     sig = ref.sign(sk, msg)
     n = vsched.RLC_MIN_LAUNCH
-    if not all(eddsa.verify_batch([msg], [pk], [sig], device=engine.device)):
+    if not engine._verify([msg], [pk], [sig]).all():
         raise RuntimeError("warm-up per-signature verify returned false")
     if not all(eddsa.verify_batch_rlc([msg] * n, [pk] * n, [sig] * n,
                                       device=engine.device)):
@@ -668,16 +1181,26 @@ def warmup_bls(engine: VerifyEngine, n_votes: int = 3,
 def serve(host: str = "127.0.0.1", port: int = 7100, device=None,
           warm_bls: bool = False, warm_bls_multi: int = 0,
           use_host: bool = False, committee: int | None = None,
-          client_rate: int | None = None, trace_path: str | None = None):
+          client_rate: int | None = None, trace_path: str | None = None,
+          chaos: bool = False, tcp: str | None = None):
     """Warm up (a ``use_host`` engine has nothing to warm), then run the
-    sidecar until interrupted; returns the closed server."""
+    sidecar until interrupted; returns the closed server.  Every boot
+    gets a launch guard; ``chaos`` enables OP_CHAOS, ``tcp``
+    ("HOST:PORT") binds a second listener on the same engine."""
     tracer = None
     if trace_path:
         tracer = Tracer(trace_path)
         log.info("span emission -> %s", trace_path)
+    chaos_state = None
+    if chaos:
+        chaos_state = ChaosState()
+        log.warning("chaos hook ENABLED (--chaos): OP_CHAOS requests can "
+                    "degrade this sidecar")
     engine = VerifyEngine(device=device, use_host=use_host,
                           committee=committee, client_rate=client_rate,
-                          tracer=tracer)
+                          tracer=tracer, chaos=chaos_state)
+    guard = None
+    servers = []
     try:
         t0 = monotonic()
         if not use_host:
@@ -686,20 +1209,59 @@ def serve(host: str = "127.0.0.1", port: int = 7100, device=None,
                 warmup_bls(engine)
             if warm_bls_multi:
                 warmup_bls(engine, warm_bls_multi, multi=True)
+
+            def rewarm():
+                # The reboot re-runs the legs this boot ran, against the
+                # loaded kernel library: no nvcc, only the device tables.
+                warmup(engine)
+                if warm_bls:
+                    warmup_bls(engine)
+                if warm_bls_multi:
+                    warmup_bls(engine, warm_bls_multi, multi=True)
+
+            engine._rewarm_fn = rewarm
         log.info("warm-up on %s done in %.1fs",
                  "the host" if use_host else engine.device, monotonic() - t0)
-        server = SidecarServer((host, port), engine)
+        # Built after the warm-up, whose outcome sets the deadline class
+        # (the kernel library is loaded now); host boots are warm.
+        guard = LaunchGuard(deadlines=LaunchDeadlines(warm_boot=True)
+                            if use_host else
+                            LaunchDeadlines.from_build(engine.device))
+        engine._guard = guard
+        servers.append(SidecarServer((host, port), engine,
+                                     chaos=chaos_state))
+        if tcp:
+            tcp_host, _, tcp_port = tcp.rpartition(":")
+            servers.append(SidecarServer(
+                (tcp_host or "0.0.0.0", int(tcp_port)), engine,
+                chaos=chaos_state))
     except BaseException:
+        for srv in servers:
+            srv.server_close()
         engine.stop()
+        if guard is not None:
+            guard.close()
         raise
-    log.info("sidecar listening on %s:%d (%s)", host,
-             server.server_address[1],
-             "host crypto" if use_host else engine.device)
+    server = servers[0]
+    for srv, what in zip(servers, ("sidecar", "sidecar fleet")):
+        log.info("%s listening on %s:%d (%s)", what, *srv.server_address[:2],
+                 "host crypto" if use_host else engine.device)
+    # The second listener shares the engine, scheduler, verdict cache and
+    # chaos state; its tenant registry is its own.
+    extra = [threading.Thread(
+        target=srv.serve_forever, kwargs={"poll_interval": 0.2},
+        daemon=True, name="sidecar-tcp-listener") for srv in servers[1:]]
+    for t in extra:
+        t.start()
     try:
         server.serve_forever(poll_interval=0.2)
     finally:
         engine.stop()
-        server.server_close()
+        guard.close()
+        for srv in servers[1:]:
+            srv.shutdown()
+        for srv in servers:
+            srv.server_close()
         if tracer is not None:
             tracer.close()
     return server
@@ -710,13 +1272,10 @@ def serve(host: str = "127.0.0.1", port: int = 7100, device=None,
 NOT_PORTED = {
     "mesh": "sharding verify over several cards (--mesh N, N > 1) is "
             "ROADMAP Queue A item 5 (parallel/ over torch.distributed)",
-    "chaos": "the OP_CHAOS fault-injection hook (--chaos) is ROADMAP "
-             "Queue A item 3; without it OP_CHAOS is answered [0], "
-             "refused",
     "cadence": "the cadence ring (--cadence, sidecar/ring.py) is ROADMAP "
-               "Queue A item 3",
-    "tcp": "the fleet's second listener (--tcp) is ROADMAP Queue A item "
-           "4, with the tenant lanes",
+               "Queue A item 3, the rest of it: the ring runs on "
+               "Scheduler.next_tick and the guard's tick: deadlines, "
+               "both ported",
     "warm_rlc_sharded": "the sharded RLC programs of --mesh N "
                         "(--warm-rlc-sharded) are ROADMAP Queue A item 5",
 }
@@ -752,21 +1311,30 @@ def main(argv=None):
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="append JSONL spans (admit/queue/pack/dispatch/"
                          "device/reply, tagged rid + class) to PATH")
+    ap.add_argument("--chaos", action="store_true",
+                    help="enable the OP_CHAOS fault-injection hook (reply "
+                         "delay, connection drops, forced sheds, launch "
+                         "wedges): test beds only, never production")
+    ap.add_argument("--tcp", default=None, metavar="HOST:PORT",
+                    help="bind a second listener (same engine and "
+                         "scheduler) on HOST:PORT for remote tenants")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
                     help="not ported for N > 1: " + NOT_PORTED["mesh"])
-    for flag in ("chaos", "cadence", "warm_rlc_sharded"):
+    for flag in ("cadence", "warm_rlc_sharded"):
         ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
                         help="not ported: " + NOT_PORTED[flag])
-    ap.add_argument("--tcp", default=None, metavar="HOST:PORT",
-                    help="not ported: " + NOT_PORTED["tcp"])
     ap.add_argument("-v", "--verbose", action="count", default=0)
     args = ap.parse_args(argv)
-    for flag in ("chaos", "cadence", "tcp", "warm_rlc_sharded"):
+    for flag in ("cadence", "warm_rlc_sharded"):
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} is not ported: "
                      f"{NOT_PORTED[flag]}")
     if args.mesh > 1:
         ap.error(f"--mesh {args.mesh} is not ported: {NOT_PORTED['mesh']}")
+    if args.tcp is not None:
+        tcp_port = args.tcp.rpartition(":")[2]
+        if not tcp_port.isdigit():
+            ap.error(f"--tcp takes HOST:PORT, got {args.tcp!r}")
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s.%(msecs)03dZ %(levelname)s [%(name)s] %(message)s",
@@ -774,7 +1342,8 @@ def main(argv=None):
     serve(args.host, args.port, device=args.device, warm_bls=args.warm_bls,
           warm_bls_multi=args.warm_bls_multi, use_host=args.host_crypto,
           committee=args.committee or None,
-          client_rate=args.client_rate or None, trace_path=args.trace)
+          client_rate=args.client_rate or None, trace_path=args.trace,
+          chaos=args.chaos, tcp=args.tcp)
 
 
 if __name__ == "__main__":

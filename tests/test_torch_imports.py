@@ -63,7 +63,11 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert "hotstuff_tpu_torch.sidecar.service" in mods
     assert "hotstuff_tpu_torch.ops.kern.msm_accum" in mods
     for name in ("offchain.bls12381", "ops.field381", "ops.bls381",
-                 "ops.kern.fq12_chain", "ops.kern.fq12_tower"):
+                 "ops.kern.fq12_chain", "ops.kern.fq12_tower",
+                 "sidecar.guard", "sidecar.sched.classes",
+                 "sidecar.sched.tenantq", "sidecar.sched.scheduler",
+                 "sidecar.sched.surge", "sidecar.sched.shapes",
+                 "sidecar.sched.stats"):
         assert f"hotstuff_tpu_torch.{name}" in mods
     proc = _run(_CHECK.format(repo=REPO, mods=mods))
     assert proc.returncode == 0, proc.stderr

@@ -21,6 +21,7 @@ from hotstuff_tpu.sidecar import protocol as jproto
 from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
 from hotstuff_tpu_torch.sidecar import protocol as proto
 from hotstuff_tpu_torch.sidecar import service
+from hotstuff_tpu_torch.sidecar.sched import surge
 from hotstuff_tpu_torch.sidecar.client import (SidecarClient,
                                                SidecarOverloaded)
 
@@ -82,14 +83,35 @@ def test_ping_verify_bulk_and_stats(sidecar):
                                      "final_exp"}
 
 
-def test_full_queue_answers_busy(sidecar, monkeypatch):
-    monkeypatch.setitem(sidecar.engine.queue_caps, service.BULK, 2)
-    msgs, pks, sigs, _ = _votes(3, 3)
-    with SidecarClient(port=sidecar.server_address[1], timeout=60) as client:
-        with pytest.raises(SidecarOverloaded) as err:
-            client.verify_batch(msgs, pks, sigs, bulk=True)
-        assert err.value.retry_after_ms == service.RETRY_AFTER_MS
-        assert client.stats()["queue_full"] == {"bulk": 1}
+def test_full_queue_answers_busy():
+    # A stopped engine drains nothing: its queues keep what they admit.
+    engine = service.VerifyEngine(device="cpu")
+    engine.stop()
+    server = service.SidecarServer(("127.0.0.1", 0), engine)
+    thread = threading.Thread(target=server.serve_forever,
+                              kwargs={"poll_interval": 0.05}, daemon=True)
+    thread.start()
+    try:
+        engine._sched._queues[service.BULK].cap_sigs = 2
+        # A request is admitted whole when its queue is empty; one queued
+        # signature makes the 3-signature request overflow the cap of 2.
+        assert engine.submit(proto.VerifyRequest(0, [b"m"], [b"k"], [b"s"]),
+                             lambda _: None, service.BULK)
+        msgs, pks, sigs, _ = _votes(3, 3)
+        with SidecarClient(port=server.server_address[1],
+                           timeout=60) as client:
+            with pytest.raises(SidecarOverloaded) as err:
+                client.verify_batch(msgs, pks, sigs, bulk=True)
+            # No launch has run, so the surge controller has no drain
+            # rate yet and the hint is the bulk class's default.
+            assert err.value.retry_after_ms == \
+                surge.RETRY_DEFAULT_MS[service.BULK]
+            assert client.stats()["queue_full"] == {"bulk": 1}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive()
 
 
 def test_unserved_opcode_closes_the_connection(sidecar):
@@ -104,21 +126,24 @@ def test_engine_coalesces_latency_before_bulk():
     engine = service.VerifyEngine(device="cpu")
     try:
         order = []
-        with engine._cond:      # hold the engine while three requests queue
-            for cls, tag in ((service.BULK, 4), (service.LATENCY, 5),
-                             (service.LATENCY, 6)):
-                msgs, pks, sigs, _ = _votes(2, tag)
+        # Hold the scheduler while three requests queue.  The bulk one
+        # (5 signatures) does not fit the 4 pad slots of the latency
+        # launch's bucket of 8, so it launches alone, after it.
+        with engine._sched._cond:
+            for cls, tag, n in ((service.BULK, 4, 5),
+                                (service.LATENCY, 5, 2),
+                                (service.LATENCY, 6, 2)):
+                msgs, pks, sigs, _ = _votes(n, tag)
                 req = proto.VerifyRequest(tag, msgs, pks, sigs)
-                engine._queues[cls].append(service.Pending(
-                    req, lambda m, tag=tag: order.append((tag, m)), cls))
-                engine._queued_sigs[cls] += 2
-            engine._cond.notify()
+                assert engine.submit(
+                    req, lambda m, tag=tag: order.append((tag, m)), cls)
         deadline = time.monotonic() + 120
         while len(order) < 3 and time.monotonic() < deadline:
             time.sleep(0.05)
         assert [t for t, _ in order] == [5, 6, 4]
-        assert all(m == [True, True] for _, m in order)
-        assert engine.stats.snapshot()["launches_by_class"] == {
+        assert all(m == [True] * len(m) for _, m in order)
+        assert [len(m) for _, m in order] == [2, 2, 5]
+        assert engine.stats_snapshot()["launches_by_class"] == {
             "latency": 1, "bulk": 1}
     finally:
         engine.stop()

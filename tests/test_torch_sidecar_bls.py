@@ -163,16 +163,17 @@ def test_bls_requests_launch_alone():
     engine.stop()                          # inspect the queues by hand
     votes = proto.VerifyRequest(0, [b"m"] * 3, [b"k"] * 3, [b"s"] * 3)
     bls_req = proto.BlsVotesRequest(1, MSG, [b"k"] * 2, [b"s"] * 2)
-    engine._stopped = False
     for req in (votes, votes, bls_req, votes):
         assert engine.submit(req, lambda _: None)
     sizes = []
     for _ in range(3):
-        batch = engine._next_launch()
-        sizes.append([type(p.request).__name__ for p in batch])
+        launch = engine._sched.next_launch(block=False)
+        sizes.append([type(p.request).__name__ for p in launch.items])
     assert sizes == [["VerifyRequest", "VerifyRequest"], ["BlsVotesRequest"],
                      ["VerifyRequest"]]
-    assert engine._queued_sigs == {service.LATENCY: 0, service.BULK: 0}
+    assert engine._sched.next_launch(block=False) is None
+    assert [engine._sched.queued_sigs(c)
+            for c in (service.LATENCY, service.BULK)] == [0, 0]
 
 
 def test_warm_bls_flags_reach_the_boot(monkeypatch):
@@ -181,7 +182,7 @@ def test_warm_bls_flags_reach_the_boot(monkeypatch):
     service.main(["--device", "cpu", "--warm-bls", "--warm-bls-multi", "5"])
     service.main(["--device", "cpu"])
     rest = {"use_host": False, "committee": None, "client_rate": None,
-            "trace_path": None}
+            "trace_path": None, "chaos": False, "tcp": None}
     assert calls == [
         {"device": "cpu", "warm_bls": True, "warm_bls_multi": 5, **rest},
         {"device": "cpu", "warm_bls": False, "warm_bls_multi": 0, **rest}]

@@ -7,8 +7,9 @@ line, on the CPU:
 * ``main()`` takes the exact flag strings that
   hotstuff_tpu/harness/local.py builds for a 4-node run (Ed25519, BLS,
   host crypto) and the integration tests' ``--host-crypto [--trace
-  PATH]``; the flags whose machinery is not ported exit non-zero with
-  the ROADMAP item that ports it;
+  PATH]``; ``--chaos`` and ``--tcp`` reach ``serve()``; the flags
+  whose machinery is not ported exit non-zero with the ROADMAP item
+  that ports it;
 * ``sched.size_queue_caps`` equals the reference's over a grid of
   committees and rates, and with its environment overrides;
 * a ``python -m hotstuff_tpu_torch.sidecar --host-crypto --trace PATH``
@@ -182,8 +183,7 @@ def test_main_takes_the_integration_tests_flags(monkeypatch, extra):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "4"], "item 5"), (["--chaos"], "item 3"),
-    (["--cadence"], "item 3"), (["--tcp", "0.0.0.0:7200"], "item 4"),
+    (["--mesh", "4"], "item 5"), (["--cadence"], "item 3"),
     (["--mesh", "4", "--warm-rlc-sharded"], "item 5")])
 def test_unported_flags_exit_nonzero(monkeypatch, capsys, argv, item):
     monkeypatch.setattr(service, "serve", lambda *a, **kw: None)
@@ -192,6 +192,14 @@ def test_unported_flags_exit_nonzero(monkeypatch, capsys, argv, item):
     assert exc.value.code != 0
     err = capsys.readouterr().err
     assert "not ported" in err and f"ROADMAP Queue A {item}" in err
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--chaos"], {"chaos": True, "tcp": None}),
+    (["--tcp", "0.0.0.0:7200"], {"chaos": False, "tcp": "0.0.0.0:7200"})])
+def test_chaos_and_tcp_flags_are_served(monkeypatch, argv, want):
+    seen = _main(monkeypatch, ["--host-crypto", *argv])
+    assert {k: seen[k] for k in want} == want
 
 
 def test_harness_mesh_flags_exit_nonzero(monkeypatch):
@@ -224,7 +232,7 @@ def test_engine_caps_follow_committee_and_rate():
     engine = service.VerifyEngine(use_host=True, committee=100,
                                   client_rate=50_000)
     try:
-        assert engine.queue_caps == {
+        assert engine.stats_snapshot()["queue_caps"] == {
             service.LATENCY: jsched.size_queue_caps(100, 50_000)[0],
             service.BULK: jsched.size_queue_caps(100, 50_000)[1]}
         assert engine.stats_snapshot()["device"] == "host"
