@@ -80,12 +80,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
      chaos knobs (shed, a 200 ms delay with a pipelined PING answered
      first, drop, clear); two bulk requests back to back and OP_STATS
      ``pipeline``.  A chaos wedge parks the launch's guard thread, not
-     the card.
+     the card;
+ 11. the mesh: fq12_product (the shard's fold) at 17 and 68 rows beside
+     its plain version, exact, timed with its bound and one-SM chain
+     bound; the gathered window sums of a 667-vote QC's four shards
+     tree-summed by _tree_sum on the card and by its plain version,
+     exact; then four shards on the card (virtual_mesh(4, cuda:0))
+     behind VerifyEngine(mesh=...) with committee 1000, the
+     --warm-rlc-sharded warm-up and a launch guard: a QC of 667 votes
+     (rlc_sharded, 256 rows a shard), a QC of 667 with one forged vote
+     (rlc_sharded with bisection), 3 votes (ladder_sharded), a bulk
+     backlog of 1280 (scan_sharded, 2 chunks of 256 rows a shard), a TC
+     of 67 votes over 67 digests (68 rows, 17 a shard) and a TC of 3
+     with a wrong-digest vote, each line with its path, mask or verdict
+     (equal to the one-card program's on the card and the host
+     reference's), launches per shard and on the lead, and wall time.
 
 The line before the last is a JSON object listing the kernels with
 their launches on the main paths (over the requests, the probe's at
 boot, and one request of each kind; the Fq12 kernels over the BLS
-requests; the probe's library time is torch.add's), times and bounds;
+requests; fq12_product over phase 11's; ``launches_mesh`` over phase
+11's requests; the probe's library time is torch.add's), times and
+bounds;
 the last line is {"ok": true, "device":
 {...}}.  Without a CUDA device, or without the rest of the repository
 beside it, the script exits non-zero and prints no result.
@@ -621,7 +637,8 @@ def sidecar_phase(dev, reqs, want):
     if not boot["probe"]:
         fail("the sidecar's boot did not launch the probe kernel")
     for name, count in launches.items():
-        if name not in OFF_PATH + BLS_KERNELS + BLS_OFF_PATH and count == 0:
+        if name not in OFF_PATH + BLS_KERNELS + BLS_OFF_PATH + MESH_ONLY \
+                and count == 0:
             fail(f"kernel {name} was not launched by the requests")
     for name in BLS_KERNELS + BLS_OFF_PATH:
         if launches[name]:
@@ -638,6 +655,8 @@ def sidecar_phase(dev, reqs, want):
 # boot, and K2's work on the RLC path runs inside rlc_scalars and
 # rlc_reduce (K2 stays for scalar25519's other callers).
 OFF_PATH = ("probe", "scalar_mont_mul")
+# The shard's fold of Miller values runs only on a mesh (phase 11).
+MESH_ONLY = ("fq12_product",)
 
 
 def ops_by_caller(run) -> dict:
@@ -1905,6 +1924,330 @@ def guard_phase() -> None:
             proc.wait()
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the mesh on the card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_COMMITTEE = 1000
+# The kernels the mesh requests must launch (the probe at its boot).
+MESH_KERNELS = ("field_mul", "msm_window_accum", "point_ladder",
+                "decompress", "point_multiples", "rlc_scalars", "rlc_reduce",
+                "miller_accumulate", "final_exp", "fq12_product")
+# The shard's fold replaces the reference's XLA scan of flat products.
+FOLD_REPLACES = "hotstuff_tpu/parallel/sharded_bls.py:41"
+MESH_QC_LABEL = f"QC of 667 votes (committee {MESH_COMMITTEE})"
+
+
+def ops_fq12_product(n: int) -> int:
+    """fq12_product on n values, counted as final_exp's product stage:
+    the n inputs' conversions, n - 1 Karatsuba products, the output's
+    conversion."""
+    from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
+
+    return ((n + 1) * 12 * OPS_W_CONVERT
+            + (n - 1) * ops_bilinear(FT.OPS["mul"]))
+
+
+def mesh_kernel_phase(dev, rng, mesh) -> dict:
+    """Phase 11, first part: fq12_product at the TC's 17 rows a shard and
+    at 68 beside its plain version, exact, timed as in phase 7; returns
+    its kernels-line row."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.ops import bls381 as B
+    from hotstuff_tpu_torch.ops import field381 as F381
+    from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
+
+    row = dict(name="fq12_product", route="cuda", source=TOWER_SOURCE,
+               replaces=FOLD_REPLACES, library_ms=None)
+    prog_bytes = FT.PROGRAM.size * 4
+    for n in (17, 68):
+        x = torch.from_numpy(np.stack([B.host_fq12_to_mont_limbs(
+            [int.from_bytes(rng.bytes(48), "little") % F381.Q
+             for _ in range(12)]) for _ in range(n)])).to(dev)
+        got = FT.fq12_product(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = FT.fq12_product_plain(x)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_abs_err(got, want)
+        if err != 0:
+            fail(f"fq12_product ({n}, 12, 48) differs from its plain "
+                 f"version (max abs err {err})")
+        ms = time_ms(lambda: FT.fq12_product(x), 20)
+        g_ms = graph_ms(lambda: FT.fq12_product(x), 20)
+        ops = ops_fq12_product(n)
+        b_ms, b_by = bound_ms((n + 1) * FQ12_BYTES + prog_bytes, ops)
+        chain_ms = ops / PEAK_SM_INT32_OPS_PER_S * 1e3
+        print(f"fq12_product ({n}, 12, 48): exact; kernel {ms:.6f} ms a "
+              f"call from Python, {g_ms:.6f} ms a launch in a CUDA graph; "
+              f"plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
+              f"chain bound on one SM {chain_ms:.6f} ms", flush=True)
+        vals = dict(max_abs_err=err, ms=ms, graph_ms=g_ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    chain_bound_ms=chain_ms)
+        if n == 17:
+            row.update(shape=f"({n}, 12, 48)", **vals)
+        else:
+            row.update({f"tc68_{k}": v for k, v in vals.items()})
+    return row
+
+
+def mesh_tree_check(mesh, prep) -> dict:
+    """Phase 11: the gathered window sums of the QC's four shards (each
+    shard's rlc_partials at its 256 rows, copied to the lead), tree-summed
+    by _tree_sum on the card (K1) and by its plain version, exact."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.ops import ed25519 as E
+    from hotstuff_tpu_torch.ops.kern.field_mul import field_mul_plain
+    from hotstuff_tpu_torch.parallel import sharded_verify as shv
+
+    packed = np.asarray(prep["packed"])
+    idx = np.nonzero(prep["host_ok"])[0]
+    n = packed.shape[0]
+    rows, z = shv._pack_rlc_rows(mesh, packed, idx, n,
+                                 shv.shard_aligned_rows(n, mesh.size), b"")
+    wsums = []
+    for i in range(mesh.size):
+        with mesh.on(i):
+            wsums.append(E.rlc_partials(rows[i], z[i])[0])
+    with mesh.on("lead"):
+        allw = shv.gather_window_sums(mesh, wsums)
+        got = E._tree_sum(allw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = E._tree_sum(allw, mul=field_mul_plain)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ms = time_ms(lambda: E._tree_sum(allw), 20)
+    err = max_abs_err(got, want)
+    if err != 0:
+        fail(f"_tree_sum of the gathered {tuple(allw.shape)} window sums "
+             f"differs from its plain version (max abs err {err})")
+    print(f"_tree_sum of the gathered {tuple(allw.shape)} window sums "
+          f"(the QC's four shards): exact; {ms:.6f} ms on the card (K1), "
+          f"plain {plain_ms:.6f} ms", flush=True)
+    return dict(tree_sum_4x64_max_abs_err=err, tree_sum_4x64_ms=ms,
+                tree_sum_4x64_plain_ms=plain_ms)
+
+
+def make_mesh_requests():
+    """A 1000-key Ed25519 committee and 64 client keys from a fixed seed:
+    a QC of 667 votes, a QC of 667 over another block with one forged
+    vote, 3 votes, a bulk backlog of 1280 transactions (a non-canonical
+    S, a forged signature, an identity public key); a 67-key BLS
+    committee's TC of 67 votes over 67 digests, and a TC of 3 votes with
+    one over a wrong digest."""
+    import hashlib
+
+    from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
+    from hotstuff_tpu_torch.offchain import bls12381 as bls
+    from hotstuff_tpu_torch.utils.intmath import L
+
+    def seed(tag: str, i: int) -> bytes:
+        return hashlib.sha256(f"chip-smoke/mesh/{tag}/{i}".encode()).digest()
+
+    committee = [ref.generate_keypair(seed("replica", i))
+                 for i in range(MESH_COMMITTEE)]
+    clients = [ref.generate_keypair(seed("client", i)) for i in range(64)]
+    quorum = 2 * MESH_COMMITTEE // 3 + 1
+
+    def qc(block: int, voters: int = quorum):
+        digest = seed("block", block)
+        return ([digest] * voters, [pk for _, pk in committee[:voters]],
+                [ref.sign(sk, digest) for sk, _ in committee[:voters]])
+
+    reqs = [(MESH_QC_LABEL, False, qc(0))]
+    msgs, pks, sigs = qc(1)
+    sigs[300] = ref.sign(committee[300][0], seed("forged", 0))
+    reqs.append(("QC of 667 votes, one forged", False, (msgs, pks, sigs)))
+    reqs.append(("3 votes", False, qc(2, voters=3)))
+    n_bulk = 1280
+    msgs = [seed("tx", j) for j in range(n_bulk)]
+    keys = [clients[j % len(clients)] for j in range(n_bulk)]
+    pks = [pk for _, pk in keys]
+    sigs = [ref.sign(sk, m) for (sk, _), m in zip(keys, msgs)]
+    s = int.from_bytes(sigs[100][32:], "little") + L
+    sigs[100] = sigs[100][:32] + s.to_bytes(32, "little")
+    sigs[900] = ref.sign(clients[1][0], seed("forged", 1))
+    pks[700] = (1).to_bytes(32, "little")
+    reqs.append((f"bulk backlog of {n_bulk}", True, (msgs, pks, sigs)))
+
+    bls_keys = [bls.key_gen(seed("bls-replica", i)) for i in range(67)]
+    pks = [pk for _, pk in bls_keys]
+    tc_msgs = [seed("bls-round", i) for i in range(67)]
+    tc_sigs = [bls.sign(sk, m) for (sk, _), m in zip(bls_keys, tc_msgs)]
+    bad = [bls.sign(bls_keys[2][0], seed("bls-forged", 0))]
+    bls_reqs = [
+        ("TC of 67 votes over 67 digests", pks, tc_msgs, tc_sigs),
+        ("TC of 3 votes, one over a wrong digest", pks[:3], tc_msgs[:3],
+         tc_sigs[:2] + bad)]
+    return reqs, bls_reqs
+
+
+def mesh_phase(dev, rng) -> tuple:
+    """Phase 11: the mesh on the card.  Four shards on the card
+    (virtual_mesh(4, cuda:0): they show that the mesh path runs and is
+    right, not that it scales) behind the engine's own entry,
+    VerifyEngine(mesh=...) with committee 1000, the --warm-rlc-sharded
+    warm-up and a launch guard.  The launch counts are zeroed before the
+    warm-up (read after it), then just before the requests and read just
+    after.  Every mask and verdict must equal the one-card program's on
+    the same card and the host reference's.  Returns (the fq12_product
+    row, launch counts over the requests, the _tree_sum check's
+    fields)."""
+    import queue
+
+    import numpy as np
+
+    from hotstuff_tpu_torch.crypto import eddsa, ref_ed25519 as ref
+    from hotstuff_tpu_torch.offchain import bls12381 as bls
+    from hotstuff_tpu_torch.ops import bls381 as B
+    from hotstuff_tpu_torch.ops import kern
+    from hotstuff_tpu_torch.parallel.mesh import virtual_mesh
+    from hotstuff_tpu_torch.sidecar import protocol as proto
+    from hotstuff_tpu_torch.sidecar import service
+    from hotstuff_tpu_torch.sidecar.guard import LaunchDeadlines, LaunchGuard
+    from hotstuff_tpu_torch.sidecar.sched import BULK, LATENCY
+
+    mesh = virtual_mesh(MESH_SHARDS, dev)
+    product_row = mesh_kernel_phase(dev, rng, mesh)
+
+    t0 = time.monotonic()
+    reqs, bls_reqs = make_mesh_requests()
+    want = [np.array([ref.verify(pk, m, s) for m, pk, s in zip(*r)])
+            for _, _, r in reqs]
+    bls_want = [bls.verify_aggregate(pks, msgs, bls.aggregate(sigs))
+                for _, pks, msgs, sigs in bls_reqs]
+    if bls_want != [True, False]:
+        fail(f"mesh: host reference TC verdicts {bls_want}")
+    # The one-card programs on the same card, before the counted window.
+    one_card = [eddsa.verify_batch(*r, device=dev) for _, _, r in reqs]
+    one_card_bls = [B.verify_aggregate_multi(pks, msgs, bls.aggregate(sigs),
+                                             device=dev)
+                    for _, pks, msgs, sigs in bls_reqs]
+    print(f"mesh: signed {sum(len(r[0]) for _, _, r in reqs)} Ed25519 "
+          f"records and {sum(len(r[3]) for r in bls_reqs)} BLS votes, host "
+          f"and one-card verdicts in {time.monotonic() - t0:.3f} s",
+          flush=True)
+    for (label, _, _), w, o in zip(reqs, want, one_card):
+        if not np.array_equal(w, o):
+            fail(f"mesh {label}: the one-card program's mask differs from "
+                 f"the host reference")
+    if one_card_bls != bls_want:
+        fail(f"mesh: one-card TC verdicts {one_card_bls} differ from the "
+             f"host reference {bls_want}")
+    tree = mesh_tree_check(mesh, eddsa.prepare_batch(*reqs[0][2]))
+
+    kern.reset_launches()
+    mesh.reset_launches()
+    t0 = time.monotonic()
+    engine = service.VerifyEngine(mesh=mesh, committee=MESH_COMMITTEE)
+    guard = None
+    try:
+        service.warmup(engine)
+        service.warmup_rlc_sharded(engine)
+        boot = {k: v for k, v in kern.LAUNCHES.items() if v}
+        print(f"mesh boot on {mesh} (warm-up and --warm-rlc-sharded, "
+              f"committee {MESH_COMMITTEE}): {time.monotonic() - t0:.3f} s,"
+              f" kernel launches {boot}; registry "
+              f"{json.dumps(engine._shapes.snapshot())}", flush=True)
+        if not boot.get("probe"):
+            fail("the mesh boot did not launch the probe kernel")
+        guard = LaunchGuard(deadlines=LaunchDeadlines.from_build(
+            engine.device))
+        engine._guard = guard
+        replies: queue.Queue = queue.Queue()
+        rid = 0
+
+        def run(label, request, cls):
+            nonlocal rid
+            before = dict(kern.LAUNCHES)
+            shards_before = {k: dict(v) for k, v in mesh.launches.items()}
+            paths_before = dict(engine._sched.stats.paths)
+            t0 = time.monotonic()
+            if not engine.submit(request, replies.put, cls=cls):
+                fail(f"mesh {label}: the engine refused the request")
+            got = replies.get(timeout=600)
+            ms = (time.monotonic() - t0) * 1e3
+            paths = sorted(p for p, n in engine._sched.stats.paths.items()
+                           if n > paths_before.get(p, 0))
+            delta = {k: kern.LAUNCHES[k] - before[k] for k in before
+                     if kern.LAUNCHES[k] != before[k]}
+            shards = {}
+            for key, counts in mesh.launches.items():
+                d = {k: v - shards_before.get(key, {}).get(k, 0)
+                     for k, v in counts.items()
+                     if v != shards_before.get(key, {}).get(k, 0)}
+                if d:
+                    shards[str(key)] = d
+            return got, ms, paths, delta, shards
+
+        kern.reset_launches()
+        mesh.reset_launches()
+        expect_paths = [["rlc_sharded"], ["rlc_bisect", "rlc_sharded"],
+                        ["ladder_sharded"], ["scan_sharded"]]
+        for (label, bulk, (msgs, pks, sigs)), w, paths_want in zip(
+                reqs, want, expect_paths):
+            rid += 1
+            got, ms, paths, delta, shards = run(
+                label, proto.VerifyRequest(rid, msgs, pks, sigs),
+                BULK if bulk else LATENCY)
+            print(f"mesh {label}: {len(msgs)} records, "
+                  f"{len(msgs) - int(w.sum())} invalid, path "
+                  f"{'+'.join(paths)}, {ms:.3f} ms, launches per shard "
+                  f"and on the lead {shards}", flush=True)
+            if got is None or list(got) != [bool(b) for b in w]:
+                fail(f"mesh {label}: the mask differs from the host "
+                     f"reference and the one-card program")
+            if paths != paths_want:
+                fail(f"mesh {label}: path {paths}, expected {paths_want}")
+        for (label, pks, msgs, sigs), w in zip(bls_reqs, bls_want):
+            rid += 1
+            got, ms, paths, delta, shards = run(
+                label, proto.BlsMultiRequest(
+                    rid, msgs, [bls.g1_encode(pk) for pk in pks],
+                    [bls.g2_encode(s) for s in sigs]), LATENCY)
+            print(f"mesh {label}: verdict {got}, path {'+'.join(paths)}, "
+                  f"{ms:.3f} ms (host preparation included), launches per "
+                  f"shard and on the lead {shards}", flush=True)
+            if got != [w]:
+                fail(f"mesh {label}: verdict {got}, the host reference and "
+                     f"the one-card program say {w}")
+            want_shards = {str(i): {"miller_accumulate": 1,
+                                    "fq12_product": 1}
+                           for i in range(MESH_SHARDS)}
+            want_shards["lead"] = {"final_exp": 1}
+            if shards != want_shards:
+                fail(f"mesh {label}: launches {shards}, expected "
+                     f"{want_shards}")
+        launches = dict(kern.LAUNCHES)
+        stats = engine.stats_snapshot()
+    finally:
+        engine.stop()
+        if guard is not None:
+            guard.close()
+    print(f"mesh OP_STATS: mesh {json.dumps(stats['mesh'])}, scan "
+          f"{json.dumps(stats['scan'])}, paths {json.dumps(stats['paths'])}"
+          f", kernels by shard {json.dumps(stats['kernels_by_shard'])}",
+          flush=True)
+    if not stats["mesh"]["sharded_launches"] or \
+            stats["scan"]["launches"] != 1 or \
+            stats["scan"]["chunk_hist"] != {"2": 1}:
+        fail(f"mesh OP_STATS: mesh {stats['mesh']}, scan {stats['scan']}")
+    for name in MESH_KERNELS:
+        if not launches[name]:
+            fail(f"kernel {name} was not launched by the mesh requests")
+    print(f"kernel launches over the mesh requests: "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return product_row, launches, tree
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "hotstuff_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1998,7 +2341,19 @@ def main() -> int:
     guard_phase()
     print(f"guard phase: {time.monotonic() - t0:.3f} s", flush=True)
 
-    print(json.dumps({"kernels": rows + bls_rows}), flush=True)
+    # Phase 11: the mesh.
+    t0 = time.monotonic()
+    product_row, mesh_launches, tree = mesh_phase(dev, rng)
+    for row in rows + bls_rows:
+        row["launches_mesh"] = mesh_launches[row["name"]]
+        if row["name"] == "field_mul":
+            row.update(tree)
+    product_row["launches"] = product_row["launches_mesh"] = \
+        mesh_launches["fq12_product"]
+    print(f"mesh phase: {time.monotonic() - t0:.3f} s", flush=True)
+
+    print(json.dumps({"kernels": rows + bls_rows + [product_row]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

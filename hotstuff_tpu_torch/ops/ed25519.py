@@ -377,6 +377,21 @@ def msm_table(points: torch.Tensor) -> torch.Tensor:
     return PC.point_multiples(points.contiguous())
 
 
+def _tree_sum(pts: torch.Tensor, mul=F.mul) -> torch.Tensor:
+    """(M, ..., 4, 32) ext -> (..., 4, 32): binary tree of point adds over
+    the leading axis (M a power of two; identity entries make padding
+    free), in the reference's halving order, so the limbs equal its.
+    The mesh's RLC program combines the shards' window sums with it;
+    ``mul`` as in ``to_cached_t`` (K1's plain version makes this the
+    plain version)."""
+    m = pts.shape[0]
+    while m > 1:
+        m //= 2
+        pts = _pack(*add_t(_unpack(pts[:m]),
+                           to_cached_t(_unpack(pts[m:]), mul), mul))
+    return pts[0]
+
+
 def msm_window_sums(points: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
     """Per-window sums of a Straus MSM: (64, 4, 32) ext points W_j with
     sum_i [s_i]P_i = sum_j 16^(63-j) W_j (windows MSB-first).  B is

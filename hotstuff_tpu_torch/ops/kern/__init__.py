@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the verify hot paths, and their routing.
 
-Fifteen kernels, each in ``csrc/`` with a Python wrapper and a plain
+Sixteen kernels, each in ``csrc/`` with a Python wrapper and a plain
 PyTorch version of the same function beside it:
 
   probe             x + 1, the toolchain and launch check (probe.py)
@@ -21,9 +21,11 @@ PyTorch version of the same function beside it:
   final_exp         the check on the Fq12 tower over 32-bit words
   fq12_hard_pow       (fq12_tower.py): the product of the Miller values,
   miller_accumulate   its whole final exponentiation and the verdict; the
-                      hard part alone as the chain in x; the whole Miller
-                      accumulation.  A pairing check launches
-                      miller_accumulate and final_exp, nothing else
+  fq12_product        hard part alone as the chain in x; the whole Miller
+                      accumulation; the product stage alone.  A pairing
+                      check launches miller_accumulate and final_exp,
+                      nothing else; on a mesh each shard adds one
+                      fq12_product
 
 Routing follows the tensors and nothing else: a CUDA tensor always goes
 through the kernel, a CPU tensor always through the plain version.
@@ -35,13 +37,44 @@ so a run can show that its main path went through the kernels.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 LAUNCHES = {"probe": 0, "field_mul": 0, "scalar_mont_mul": 0,
             "msm_window_accum": 0, "point_ladder": 0, "decompress": 0,
             "point_multiples": 0, "rlc_scalars": 0, "rlc_reduce": 0,
             "fq12_mul": 0, "miller_accumulate": 0, "fq12_pow": 0,
-            "fq_pow": 0, "fq12_hard_pow": 0, "final_exp": 0}
+            "fq_pow": 0, "fq12_hard_pow": 0, "final_exp": 0,
+            "fq12_product": 0}
+
+
+# The launching thread's extra tally (``counting_to``), None outside one.
+_thread = threading.local()
+
+
+def count_launch(name: str, grids: int = 1) -> None:
+    """Count ``grids`` launches of kernel ``name``: the wrappers call it
+    where they launch, and nowhere else."""
+    LAUNCHES[name] += grids
+    tally = getattr(_thread, "tally", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + grids
+
+
+@contextlib.contextmanager
+def counting_to(tally: dict):
+    """Inside the block, this thread's launches also count in ``tally``
+    (a mesh shard's, parallel/mesh ``Mesh.on``).  Another thread's
+    launches never do: a guard thread left running after a wedge keeps
+    counting to its own shard."""
+    outer = getattr(_thread, "tally", None)
+    _thread.tally = tally
+    try:
+        yield tally
+    finally:
+        _thread.tally = outer
 
 
 def reset_launches() -> None:

@@ -52,6 +52,7 @@ SIGNATURES = {
     "hk_fq_pow": [_P, _P, _P, _LL, _I, _P],
     "hk_fq12_hard_pow": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _LL, _P],
     "hk_final_exp": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _LL, _P],
+    "hk_fq12_product": [_P, _I, _P, _I, _P, _P],
 }
 
 _lock = threading.Lock()

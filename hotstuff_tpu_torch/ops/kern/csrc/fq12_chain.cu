@@ -44,6 +44,8 @@
 // fq_pow onto it is later work.
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 #include "field381.cuh"
 
 namespace {
@@ -188,14 +190,20 @@ extern "C" int hk_fq12_mul(const int* x, const int* y, int* out,
 extern "C" int hk_fq12_pow(const int* x, const int* digits, int* out,
                            long long rows, int ndigits, void* stream) {
   const int bytes = kPowSmemInts * static_cast<int>(sizeof(int));
-  // Above 48 KB of dynamic shared memory needs the opt-in, once per
-  // process (so never inside a CUDA graph capture after the first call).
-  static bool opted_in = false;
-  if (!opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
+  // Above 48 KB of dynamic shared memory needs the opt-in, which
+  // cudaFuncSetAttribute gives the current device only: once per device
+  // (so never inside a CUDA graph capture after a device's first call).
+  // A call on a device past kMaxDevices opts in every time.
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> opted_in[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices || !opted_in[device].load()) {
+    err = cudaFuncSetAttribute(
         fq12_pow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
+    if (device < kMaxDevices) opted_in[device].store(true);
   }
   if (rows > 0) {
     fq12_pow_kernel<<<static_cast<unsigned>(rows), kThreads, bytes,

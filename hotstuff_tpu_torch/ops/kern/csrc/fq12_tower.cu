@@ -1,6 +1,7 @@
 // The BLS12-381 check on the Fq12 tower of fq12w.cuh, over the
 // 32-bit-word Montgomery field of fq381w.cuh, in two launches:
-// miller_accumulate, then final_exp.
+// miller_accumulate, then final_exp (on a mesh, fq12_product between
+// them on each shard).
 //
 //   final_exp          the product of a check's P Miller values, raised
 //                      to (q^12 - 1) / r, and whether that is one (the
@@ -15,6 +16,9 @@
 //                      maps and two conjugations (~315 squarings, ~60
 //                      products) where the generic fq12_pow runs 1,604
 //                      flat products;
+//   fq12_product       the product of n flat values, final_exp's first
+//                      stage alone: one block, a dependent chain of
+//                      n - 1 Karatsuba products;
 //   miller_accumulate  all S steps of f <- f^2 l0 l1 from f = 1 for one
 //                      pairing per row (bls381.miller_accumulate), each
 //                      line skipped when it equals one (58 of a pairing's
@@ -123,7 +127,39 @@ miller_accumulate_kernel(const int* __restrict__ lines,
                  out + row * tw::kFlatInts, sf, sl, sstage, tw::make_scratch(sh.scratch, sh.cols));
 }
 
+// The product of n flat values in one block: the product stage of
+// final_exp alone (a mesh shard folds its Miller values with it before
+// one element crosses to the lead).
+struct ProductShared {
+  Shared sh;
+  __align__(16) uint32_t f[kFq12];
+  __align__(16) uint32_t table[tw::kProductChunk * kFq12];
+};
+
+__global__ void __launch_bounds__(kThreads)
+fq12_product_kernel(const int* __restrict__ x, int n,
+                    const int* __restrict__ prog, int prog_len,
+                    int* __restrict__ out) {
+  __shared__ ProductShared p;
+  load_prog(p.sh, prog, prog_len);
+  const tw::Scratch s = tw::make_scratch(p.sh.scratch, p.sh.cols);
+  tw::product_tower(p.sh.prog, x, n, p.f, p.table, s);
+  tw::tower_to_flat(p.f, out);
+}
+
 }  // namespace
+
+// x (n, 12, 48), n >= 1; prog as below; out (12, 48) the canonical limbs
+// of x_0 ... x_(n-1).
+extern "C" int hk_fq12_product(const int* x, int n, const int* prog,
+                               int prog_len, int* out, void* stream) {
+  if (prog_len > kProgCapacity || n < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  fq12_product_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, n, prog, prog_len, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // x, out (rows, 12, 48); prog (prog_len,) the table of fq12_tower.py;
 // consts the 24 Frobenius constants as (24, 12) words; d1 (n1,) the

@@ -420,6 +420,26 @@ TW_OUTLINE void hard_pow_row(const int* prog, const uint32_t* consts,
   tower_to_flat(h.a, out);
 }
 
+// The product of n flat elements (n >= 1) into the tower element f: they
+// enter the tower up to kProductChunk at a time (into table, kProductChunk
+// elements) and multiply into f by Karatsuba products, in input order.
+constexpr int kProductChunk = 15;
+
+TW_OUTLINE void product_tower(const int* prog, const int* in, int n,
+                              uint32_t* f, uint32_t* table,
+                              const Scratch& s) {
+  for (int i = 0; i < n; i += kProductChunk) {
+    const int m = n - i < kProductChunk ? n - i : kProductChunk;
+    flat_to_tower(in + i * kFlatInts, table, m);
+    int j = 0;
+    if (i == 0) {
+      copy(table, f);
+      j = 1;
+    }
+    for (; j < m; ++j) bilinear<kMul>(prog, f, table + j * kFq12, f, s);
+  }
+}
+
 // out = f^-1 (0 -> 0) for f = a + b w, given cf = conj(f) = a - b w, down
 // the tower with one Fq inversion: N = f cf = a^2 - b^2 v in Fq6; for N
 // = c0 + c1 v + c2 v^2, (A, B, C) = (c0^2 - xi c1 c2, xi c2^2 - c0 c1,
@@ -449,17 +469,7 @@ TW_OUTLINE void final_exp_row(const int* prog, const uint32_t* consts,
                               const int* d1, int n1, const int* dx, int nx,
                               const int* in, int n, int* out, int* ok,
                               const HardBuffers& h, const Scratch& s) {
-  constexpr int kChunk = 15;
-  for (int i = 0; i < n; i += kChunk) {
-    const int m = n - i < kChunk ? n - i : kChunk;
-    flat_to_tower(in + i * kFlatInts, h.table, m);
-    int j = 0;
-    if (i == 0) {
-      copy(h.table, h.f);
-      j = 1;
-    }
-    for (; j < m; ++j) bilinear<kMul>(prog, h.f, h.table + j * kFq12, h.f, s);
-  }
+  product_tower(prog, in, n, h.f, h.table, s);
   conj(h.f, h.a);
   tower_inv(prog, h.f, h.a, h.b, h.t, h.u, s);
   bilinear<kMul>(prog, h.a, h.b, h.f, s);                 // f^(q^6 - 1)

@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as nnf
 
-from . import LAUNCHES, build, check_int32, check_launch, on_card, stream_of
+from . import (build, check_int32, check_launch, count_launch, on_card,
+                stream_of)
 
 NLIMBS = 32
 
@@ -67,5 +68,5 @@ def field_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     check_launch("field_mul", build.load().hk_field_mul(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // NLIMBS,
         stream_of(a)))
-    LAUNCHES["field_mul"] += 1
+    count_launch("field_mul")
     return out

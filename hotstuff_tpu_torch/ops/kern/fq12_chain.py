@@ -31,7 +31,8 @@ from __future__ import annotations
 import torch
 
 from .. import field381 as F
-from . import LAUNCHES, build, check_int32, check_launch, on_card, stream_of
+from . import (build, check_int32, check_launch, count_launch, on_card,
+                stream_of)
 
 NLIMBS = F.NLIMBS
 FQ12 = 12
@@ -134,7 +135,7 @@ def fq12_mul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return out
     check_launch("fq12_mul", build.load().hk_fq12_mul(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), rows, stream_of(x)))
-    LAUNCHES["fq12_mul"] += 1
+    count_launch("fq12_mul")
     return out
 
 
@@ -152,7 +153,7 @@ def fq12_pow(x: torch.Tensor, exponent: int) -> torch.Tensor:
     check_launch("fq12_pow", build.load().hk_fq12_pow(
         x.data_ptr(), digits.data_ptr(), out.data_ptr(), rows,
         digits.numel(), stream_of(x)))
-    LAUNCHES["fq12_pow"] += 1
+    count_launch("fq12_pow")
     return out
 
 
@@ -173,5 +174,5 @@ def fq_pow(x: torch.Tensor, exponent: int) -> torch.Tensor:
     check_launch("fq_pow", build.load().hk_fq_pow(
         flat.data_ptr(), digits.data_ptr(), out.data_ptr(), flat.shape[0],
         digits.numel(), stream_of(x)))
-    LAUNCHES["fq_pow"] += 1
+    count_launch("fq_pow")
     return out.reshape(x.shape)

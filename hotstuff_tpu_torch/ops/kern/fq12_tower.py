@@ -15,6 +15,10 @@ csrc/fq381w.cuh); a pairing check is miller_accumulate, then final_exp:
                      all S steps of f <- f^2 l0 l1 from f = 1, a line
                      equal to one skipped, a sparse one taken by the
                      sparse product
+  fq12_product       (n, 12, 48) -> (12, 48): the product of n values,
+                     final_exp's first stage alone (a mesh shard's fold
+                     of its Miller values before one element crosses to
+                     the lead)
 
 Inputs are the reference's flat Fq12 elements (bls381: sum a_k w^k
 modulo w^12 - 2w^6 + 2, Montgomery limbs in any weak form with
@@ -49,7 +53,8 @@ import torch
 
 from .. import field381 as F
 from ...offchain import bls12381 as host
-from . import LAUNCHES, build, check_int32, check_launch, on_card, stream_of
+from . import (build, check_int32, check_launch, count_launch, on_card,
+                stream_of)
 from .fq12_chain import fq_pow_plain
 
 Q = F.Q
@@ -549,6 +554,17 @@ def final_exp_plain(fs: torch.Tensor) -> tuple:
     return ok, tower_to_flat_plain(out)
 
 
+def fq12_product_plain(x: torch.Tensor) -> torch.Tensor:
+    """(n, 12, 48) flat Fq12 values, n >= 1 -> canonical limbs (12, 48)
+    of their product, by the kernel's algorithm: into the tower, then
+    the n - 1 Karatsuba products in input order."""
+    t = flat_to_tower_plain(x)
+    f = t[0]
+    for i in range(1, t.shape[0]):
+        f = bilinear_plain("mul", f, t[i])
+    return tower_to_flat_plain(f)
+
+
 def line_branches(tower_lines: torch.Tensor) -> tuple:
     """(..., 12, 48) canonical tower lines -> (is one, is sparse) bool
     masks of shape (...): the kernel's run-time tests."""
@@ -621,7 +637,7 @@ def fq12_hard_pow(x: torch.Tensor) -> torch.Tensor:
         d1.data_ptr(),
         d1.numel(), dx.data_ptr(), dx.numel(), out.data_ptr(), x.shape[0],
         stream_of(x)))
-    LAUNCHES["fq12_hard_pow"] += 1
+    count_launch("fq12_hard_pow")
     return out
 
 
@@ -648,8 +664,28 @@ def final_exp(fs: torch.Tensor) -> tuple:
         fs.data_ptr(), p, prog.data_ptr(), prog.numel(), consts.data_ptr(),
         d1.data_ptr(), d1.numel(), dx.data_ptr(), dx.numel(),
         out.data_ptr(), ok.data_ptr(), rows, stream_of(fs)))
-    LAUNCHES["final_exp"] += 1
+    count_launch("final_exp")
     return ok.bool(), out
+
+
+def fq12_product(x: torch.Tensor) -> torch.Tensor:
+    """(n, 12, 48) int32 flat Montgomery Fq12 values, n >= 1 -> (12, 48)
+    canonical limbs of their product: the kernel on a CUDA tensor (one
+    block), the plain version on a CPU one."""
+    if x.dim() != 3 or tuple(x.shape[1:]) != (FQ12, NLIMBS) \
+            or x.shape[0] < 1:
+        raise ValueError(f"fq12_product: expected (n >= 1, {FQ12}, "
+                         f"{NLIMBS}), got {tuple(x.shape)}")
+    check_int32("fq12_product x", x, x.shape)
+    if not on_card(x):
+        return fq12_product_plain(x)
+    out = torch.empty((FQ12, NLIMBS), dtype=torch.int32, device=x.device)
+    prog = _tables(x.device)[0]
+    check_launch("fq12_product", build.load().hk_fq12_product(
+        x.data_ptr(), x.shape[0], prog.data_ptr(), prog.numel(),
+        out.data_ptr(), stream_of(x)))
+    count_launch("fq12_product")
+    return out
 
 
 def miller_accumulate(lines: torch.Tensor) -> torch.Tensor:
@@ -674,5 +710,5 @@ def miller_accumulate(lines: torch.Tensor) -> torch.Tensor:
         lines.data_ptr(), prog.data_ptr(), prog.numel(), out.data_ptr(),
         rows, steps,
         stream_of(lines)))
-    LAUNCHES["miller_accumulate"] += 1
+    count_launch("miller_accumulate")
     return out

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, build, check_int32, check_launch, on_card, stream_of
+from . import (build, check_int32, check_launch, count_launch, on_card,
+                stream_of)
 from .field_mul import field_mul_plain
 
 WINDOWS = 64
@@ -70,5 +71,5 @@ def msm_window_accum(table: torch.Tensor,
         None if partials is None else partials.data_ptr(), out.data_ptr(),
         b, m, stream_of(table)))
     # The entry launches the fold grid only when B > m, then the finish.
-    LAUNCHES["msm_window_accum"] += 1 if partials is None else 2
+    count_launch("msm_window_accum", 1 if partials is None else 2)
     return out

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, build, check_int32, check_launch, on_card, stream_of
+from . import (build, check_int32, check_launch, count_launch, on_card,
+                stream_of)
 from .field_mul import field_mul_plain
 
 NLIMBS = 32
@@ -91,7 +92,7 @@ def point_ladder(table: torch.Tensor, digits: torch.Tensor,
     check_launch("point_ladder", build.load().hk_point_ladder(
         table.data_ptr(), digits.data_ptr(), out.data_ptr(), b, steps, k,
         int(bt != 1), int(j != 1), ndbl, stream_of(table)))
-    LAUNCHES["point_ladder"] += 1
+    count_launch("point_ladder")
     return out
 
 
@@ -127,7 +128,7 @@ def decompress(y_limbs: torch.Tensor, sign_bit: torch.Tensor):
     check_launch("decompress", build.load().hk_decompress(
         y_limbs.data_ptr(), sign_bit.data_ptr(), out.data_ptr(),
         ok.data_ptr(), b, stream_of(y_limbs)))
-    LAUNCHES["decompress"] += 1
+    count_launch("decompress")
     return out, ok
 
 
@@ -170,5 +171,5 @@ def point_multiples(points: torch.Tensor, cached: bool = False,
     check_launch("point_multiples", build.load().hk_point_multiples(
         points.data_ptr(), out.data_ptr(), b, int(cached), int(negate),
         stream_of(points)))
-    LAUNCHES["point_multiples"] += 1
+    count_launch("point_multiples")
     return out

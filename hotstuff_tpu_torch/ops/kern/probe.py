@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, build, check_int32, check_launch, on_card, stream_of
+from . import (build, check_int32, check_launch, count_launch, on_card,
+                stream_of)
 
 
 def probe_plain(x: torch.Tensor) -> torch.Tensor:
@@ -21,5 +22,5 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     check_launch("probe", build.load().hk_probe(
         x.data_ptr(), out.data_ptr(), x.numel(), stream_of(x)))
-    LAUNCHES["probe"] += 1
+    count_launch("probe")
     return out

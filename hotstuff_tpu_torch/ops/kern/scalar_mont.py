@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as nnf
 
 from ...utils.intmath import L
-from . import LAUNCHES, build, check_int32, check_launch, on_card, stream_of
+from . import (build, check_int32, check_launch, count_launch, on_card,
+                stream_of)
 from .field_mul import schoolbook
 
 NLIMBS = 32
@@ -91,5 +92,5 @@ def scalar_mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     check_launch("scalar_mont_mul", build.load().hk_scalar_mont_mul(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel() // NLIMBS,
         stream_of(a)))
-    LAUNCHES["scalar_mont_mul"] += 1
+    count_launch("scalar_mont_mul")
     return out

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as nnf
 
 from ...utils.intmath import L
-from . import LAUNCHES, build, check_int32, check_launch, on_card, stream_of
+from . import (build, check_int32, check_launch, count_launch, on_card,
+                stream_of)
 from .scalar_mont import NLIMBS, R, carry_bytes, cond_sub, digits
 from .scalar_mont import scalar_mont_mul_plain
 
@@ -80,7 +81,7 @@ def rlc_scalars(z: torch.Tensor, k: torch.Tensor,
     check_launch("rlc_scalars", build.load().hk_rlc_scalars(
         z.data_ptr(), k.data_ptr(), s.data_ptr(), out_digits.data_ptr(),
         u.data_ptr(), b, stream_of(z)))
-    LAUNCHES["rlc_scalars"] += 1
+    count_launch("rlc_scalars")
     return out_digits, u
 
 
@@ -112,5 +113,5 @@ def rlc_reduce(sums: torch.Tensor) -> torch.Tensor:
     check_launch("rlc_reduce", build.load().hk_rlc_reduce(
         sums.data_ptr(), out.data_ptr(), sums.numel() // NLIMBS,
         stream_of(sums)))
-    LAUNCHES["rlc_reduce"] += 1
+    count_launch("rlc_reduce")
     return out

@@ -266,7 +266,8 @@ class Scheduler:
             # so N replicas submitting one QC (total >> unique) must not
             # size fill off the raw total.  Each fill request counts at
             # its full record count, so unique-after-fill stays inside
-            # the latency batch's bucket.  The dedup hashes every record
+            # the latency batch's bucket (on a mesh, the shard-aligned
+            # row count: fill never grows a shard's rows).  The dedup hashes every record
             # under the admission lock, so it runs only when fill is
             # possible (bulk queued, batch within one launch).
             fill = []

@@ -4,8 +4,8 @@ hotstuff_tpu/sidecar/sched/stats.py.
 Launch sizes (coalesce histogram), padded capacity wasted or used by
 bulk fill, the verify path each launch took, queue waits per class and
 per tenant (p50/p99), admissions and sheds, the bulk lane's source mix,
-the mesh and whole-backlog scan sections (zero on one card: the mesh
-routes are not ported), and the share of host pack time the pipeline
+the mesh and whole-backlog scan sections (fed by a mesh engine's
+launches; zero on one card), and the share of host pack time the pipeline
 hid behind device execution (the ``pipeline`` overlap section).
 
 Writers: the engine and pack threads and the connection threads; one

@@ -29,6 +29,12 @@ refused, without it), and, in the latency class, OP_BLS_VERIFY_VOTES,
 OP_BLS_VERIFY_AGG, OP_BLS_VERIFY_MULTI and OP_BLS_SIGN.  A frame that
 does not decode closes the connection.
 
+``--mesh N`` shards verification over N cards from this one process
+(parallel/): QCs and backlogs through the sharded one-MSM, per-signature
+and whole-backlog scan programs, TCs through the sharded multi-digest
+check; ``--warm-rlc-sharded`` runs and marks the mesh shapes before the
+socket binds.  ``--device cpu --mesh N`` builds N CPU shards.
+
 ``--host-crypto`` verifies on the host, with no device and no kernel
 build: Ed25519 with the copied ``crypto/ref_ed25519``, the BLS opcodes
 with the copied ``offchain/bls12381``.  ``--trace PATH`` appends the
@@ -37,15 +43,16 @@ device and reply.  ``--tcp HOST:PORT`` binds a second listener on the
 same engine.
 
 Run:  python -m hotstuff_tpu_torch.sidecar --port 7100 [--device cuda|cpu]
-          [--host-crypto] [--warm-bls] [--warm-bls-multi N] [--chaos]
-          [--committee N] [--client-rate TPS] [--trace PATH]
-          [--tcp HOST:PORT]
+          [--mesh N] [--warm-rlc-sharded] [--warm N] [--host-crypto]
+          [--warm-bls] [--warm-bls-multi N] [--chaos] [--committee N]
+          [--client-rate TPS] [--trace PATH] [--tcp HOST:PORT]
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import logging
 import queue
 import socket
@@ -68,6 +75,14 @@ from ..utils.device import resolve
 from ..utils.intmath import next_pow2
 
 log = logging.getLogger("sidecar")
+
+# The cap a mesh's launch cap may rise to once its whole-backlog scan
+# shapes are marked (the reference's MAX_COALESCED).
+MAX_COALESCED = 16 * MAX_SUBBATCH
+
+# The routes that launch on a mesh (sidecar/sched/shapes).
+MESH_PATHS = (vsched.PATH_RLC_SHARDED, vsched.PATH_LADDER_SHARDED,
+              vsched.PATH_SCAN_SHARDED)
 
 BLS_VERIFY_OPS = (proto.OP_BLS_VERIFY_AGG, proto.OP_BLS_VERIFY_VOTES,
                   proto.OP_BLS_VERIFY_MULTI)
@@ -202,7 +217,10 @@ class VerifyEngine:
     """Owns the device; one engine thread drains the scheduler.
 
     ``use_host`` verifies every request on the host instead (no device);
-    ``committee`` and ``client_rate`` size the class queues
+    ``mesh_devices`` N > 1 shards verification over a mesh of the first
+    N cards (N CPU shards for ``device="cpu"``), or ``mesh`` gives the
+    mesh (parallel/mesh); ``committee`` and ``client_rate`` size the
+    class queues
     (sched.size_queue_caps); ``tracer`` receives the stage spans;
     ``guard`` supervises every device wait (None runs bare); ``chaos``
     is the OP_CHAOS state whose ``wedge`` knob reaches the launches;
@@ -216,15 +234,27 @@ class VerifyEngine:
     # the host side of the next is already staging.
     PIPELINE_DEPTH = 2
 
-    def __init__(self, device=None, *, use_host: bool = False,
+    def __init__(self, device=None, *, mesh_devices: int | None = None,
+                 mesh=None, use_host: bool = False,
                  committee: int | None = None,
                  client_rate: int | None = None,
                  tracer: Tracer | None = None, guard=None, chaos=None,
                  rewarm_fn=None):
         self._use_host = use_host
-        self.device = None if use_host else resolve(device)
-        self._shapes = vsched.ShapeRegistry(use_host=use_host,
-                                            committee=committee)
+        if use_host:
+            mesh = None
+        elif mesh is None and mesh_devices and mesh_devices > 1:
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh(mesh_devices, device)
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if use_host:
+            self.device = None
+        else:
+            self.device = mesh.lead if mesh is not None else resolve(device)
+        self._shapes = vsched.ShapeRegistry(
+            use_host=use_host, committee=committee,
+            n_devices=self._mesh.size if self._mesh is not None else 0)
         lat_cap, bulk_cap = vsched.size_queue_caps(committee, client_rate)
         self._sched = vsched.Scheduler(shapes=self._shapes,
                                        latency_cap_sigs=lat_cap,
@@ -376,9 +406,27 @@ class VerifyEngine:
             g["device_ok"] = self._device_ok
             g["rebooting"] = self._rebooting
             snap["guard"] = g
-        snap["device"] = "host" if self._use_host else str(self.device)
+        snap["device"] = "host" if self._use_host else str(
+            self._mesh or self.device)
         snap["kernels"] = dict(kern.LAUNCHES)
+        if self._mesh is not None:
+            snap["kernels_by_shard"] = {
+                str(k): dict(v) for k, v in self._mesh.launches.items()}
         return snap
+
+    def enable_bulk(self):
+        """Raise a mesh's launch cap to its marked whole-backlog scan
+        capacity (at most MAX_COALESCED); call after the scan warm-up."""
+        self._shapes.enable_bulk(MAX_COALESCED)
+
+    def on_lead(self):
+        """On a mesh, a context that makes the lead's device current and
+        counts its launches there (CUDA's current device is per host
+        thread, and the guard runs every launch on a fresh one); a no-op
+        on one device."""
+        if self._mesh is not None:
+            return self._mesh.on("lead")
+        return contextlib.nullcontext()
 
     def stop(self):
         self._stopped.set()
@@ -794,6 +842,9 @@ class VerifyEngine:
         elif path == vsched.PATH_RLC:
             dispatchers = [eddsa.verify_batch_rlc_pack(
                 msgs, pks, sigs, on_bisect=on_bisect, device=self.device)]
+        elif path in MESH_PATHS:
+            dispatchers = self._pack_sharded(path, msgs, pks, sigs,
+                                             on_bisect)
         else:
             # A request larger than the launch cap (the coalescer bounds
             # only additional requests) is sliced here.
@@ -831,6 +882,43 @@ class VerifyEngine:
 
         return dispatch
 
+    def _pack_sharded(self, path, msgs, pks, sigs, on_bisect):
+        """Pack-stage dispatchers of the mesh routes: an RLC launch goes
+        whole (one MSM across the mesh), a scan-routed backlog too (one
+        chunked whole-backlog launch), ladder launches slice at the
+        registry's ladder cap.  Each launch's per-shard buckets (one per
+        slice) enter the OP_STATS ``mesh`` histogram, counted once per
+        launch; scan launches enter ``scan`` with their chunk count."""
+        from ..crypto.eddsa import prepare_batch
+        from ..parallel import sharded_verify as shv
+
+        stats = self._sched.stats
+        mesh = self._mesh
+        if path == vsched.PATH_RLC_SHARDED:
+            stats.note_mesh_launch([self._shapes.shard_bucket_of(len(msgs))])
+            return [shv.verify_rlc_sharded_pack(
+                mesh, prepare_batch(msgs, pks, sigs), on_bisect=on_bisect)]
+        if path == vsched.PATH_SCAN_SHARDED:
+            shape = self._shapes.scan_shape_of(len(msgs))
+            if shape is not None:
+                # slices_avoided: the MAX_SUBBATCH ladder launches a mesh
+                # without the scan would have made.
+                g, rows = shape
+                stats.note_scan_launch(
+                    g, len(msgs), -(-len(msgs) // MAX_SUBBATCH) - 1)
+                return [shv.verify_sharded_chunked_pack(
+                    mesh, prepare_batch(msgs, pks, sigs), rows=rows)]
+        # The marked ladder cap, never the scan-raised launch cap.
+        step = self._shapes.ladder_cap()
+        buckets, out = [], []
+        for i in range(0, len(msgs), step):
+            sl = slice(i, i + step)
+            buckets.append(self._shapes.shard_bucket_of(len(msgs[sl])))
+            out.append(shv.verify_batch_sharded_pack(
+                mesh, prepare_batch(msgs[sl], pks[sl], sigs[sl])))
+        stats.note_mesh_launch(buckets)
+        return out
+
     def _verify_submit(self, msgs, pks, sigs, force_device: bool = False):
         """Dispatch one slice; returns fetch() -> (n,) bool mask.  While
         a reboot re-warms the device leg (``_device_ok`` false) it
@@ -848,8 +936,14 @@ class VerifyEngine:
             return lambda: res
         from ..crypto import eddsa
 
-        return eddsa.verify_batch_submit(msgs, pks, sigs,
-                                         device=self.device)
+        if self._mesh is not None:
+            from ..parallel.sharded_verify import verify_batch_sharded_pack
+
+            return verify_batch_sharded_pack(self._mesh, eddsa.prepare_batch(
+                msgs, pks, sigs))()
+        with self.on_lead():
+            return eddsa.verify_batch_submit(msgs, pks, sigs,
+                                             device=self.device)
 
     def _verify(self, msgs, pks, sigs) -> np.ndarray:
         return np.asarray(self._verify_submit(msgs, pks, sigs)())
@@ -938,12 +1032,20 @@ class VerifyEngine:
                 ok = bls.verify_aggregate(pks, req.msgs, agg)
             else:
                 ok = bls.verify_aggregate_common(pks, req.msg, agg)
-        elif isinstance(req, proto.BlsMultiRequest):
-            ok = dbls.verify_aggregate_multi(pks, req.msgs, agg,
-                                             device=self.device)
+        elif isinstance(req, proto.BlsMultiRequest) and \
+                self._mesh is not None:
+            from ..parallel.sharded_bls import verify_aggregate_multi_sharded
+
+            ok = verify_aggregate_multi_sharded(self._mesh, pks, req.msgs,
+                                                agg)
         else:
-            ok = dbls.verify_aggregate_common(pks, req.msg, agg,
-                                              device=self.device)
+            with self.on_lead():
+                if isinstance(req, proto.BlsMultiRequest):
+                    ok = dbls.verify_aggregate_multi(pks, req.msgs, agg,
+                                                     device=self.device)
+                else:
+                    ok = dbls.verify_aggregate_common(pks, req.msg, agg,
+                                                      device=self.device)
         return [bool(ok)], True
 
 
@@ -1117,32 +1219,138 @@ class SidecarServer(socketserver.ThreadingTCPServer):
             return True
 
 
-def warmup(engine: VerifyEngine) -> None:
+def _warm_record(msg: bytes):
+    """(pk, sig): the warm-ups' one key and its signature over ``msg``."""
+    from ..crypto import ref_ed25519 as ref
+
+    sk = bytes(range(32))
+    return ref.generate_keypair(sk)[1], ref.sign(sk, msg)
+
+
+def warmup(engine: VerifyEngine, warm_max: int = MAX_SUBBATCH) -> None:
     """Build the kernels, check the toolchain with the probe kernel and
     place the comb table on the device before the socket binds, by
     verifying one small batch through each program (the per-signature
     one through the engine's own entry): until the socket exists, nodes
     get ECONNREFUSED and verify on the host instead of waiting on a
-    build.  The reboot's re-warm runs it again."""
+    build.  On a mesh the probe runs on every shard, and the
+    per-signature sharded program runs at every global size 8, 16, ...
+    ``warm_max``, each marked in the registry (the reference's
+    ``_warmup``).  The reboot's re-warm runs it again."""
     import torch
 
-    from ..crypto import eddsa, ref_ed25519 as ref
+    from ..crypto import eddsa
     from ..ops.kern.probe import probe
 
-    x = torch.zeros((8, 128), dtype=torch.int32, device=engine.device)
-    if not bool((probe(x) == 1).all()):
-        raise RuntimeError("probe kernel did not return x + 1")
+    mesh = engine._mesh
+    targets = [(mesh.on(i), dev) for i, dev in enumerate(mesh.devices)] \
+        if mesh is not None else [(engine.on_lead(), engine.device)]
+    for ctx, dev in targets:
+        with ctx:
+            x = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+            if not bool((probe(x) == 1).all()):
+                raise RuntimeError("probe kernel did not return x + 1")
 
-    sk = bytes(range(32))
-    _, pk = ref.generate_keypair(sk)
     msg = b"\x01" * 32
-    sig = ref.sign(sk, msg)
+    pk, sig = _warm_record(msg)
+    if mesh is not None:
+        n = 8
+        while n <= warm_max:
+            t0 = monotonic()
+            if not engine._verify([msg] * n, [pk] * n, [sig] * n).all():
+                raise RuntimeError(f"mesh warm-up per-signature verify "
+                                   f"returned false at N={n}")
+            engine._shapes.mark_bucket(n)
+            log.info("mesh warm-up N=%d done in %.1fs", n, monotonic() - t0)
+            n *= 2
+        return
     n = vsched.RLC_MIN_LAUNCH
     if not engine._verify([msg], [pk], [sig]).all():
         raise RuntimeError("warm-up per-signature verify returned false")
-    if not all(eddsa.verify_batch_rlc([msg] * n, [pk] * n, [sig] * n,
-                                      device=engine.device)):
+    with engine.on_lead():
+        ok = eddsa.verify_batch_rlc([msg] * n, [pk] * n, [sig] * n,
+                                    device=engine.device)
+    if not all(ok):
         raise RuntimeError("warm-up RLC verify returned false")
+
+
+def warmup_mesh_scan(engine: VerifyEngine, warm_max: int = MAX_SUBBATCH,
+                     scan_chunks: int | None = None) -> None:
+    """Run the whole-backlog mesh scan once at every chunk count the
+    engine may launch (g = 2, 4, ... MESH_SCAN_CHUNKS chunks of the top
+    per-shard bucket) through its staged entry, and mark each (g, rows)
+    so the router starts choosing ``scan_sharded`` and enable_bulk may
+    raise the launch cap.  ``scan_chunks`` lowers the chunk-count
+    ceiling (test beds trade drain capacity for boot time).  The
+    reference's ``_warmup_mesh_scan``."""
+    from ..crypto import eddsa
+    from ..parallel import sharded_verify as shv
+
+    n_dev = engine._shapes.n_devices
+    if n_dev < 2 or engine._mesh is None:
+        log.warning("mesh scan warm-up ignored: no device mesh")
+        return
+    if engine._shapes.mesh_chunks:
+        return
+    if scan_chunks is None:
+        scan_chunks = vsched.MESH_SCAN_CHUNKS
+    msg = b"\x03" * 32
+    pk, sig = _warm_record(msg)
+    # The committee floor, as in the RLC leg: both derive the same rows.
+    cap = min(max(warm_max, engine._shapes.qc_sigs or 0), MAX_SUBBATCH)
+    rows = shv.shard_bucket(cap, n_dev)
+    g = 2
+    while g <= min(scan_chunks, vsched.MESH_SCAN_CHUNKS):
+        n = n_dev * g * rows
+        t0 = monotonic()
+        prep = eddsa.prepare_batch([msg] * n, [pk] * n, [sig] * n)
+        if not shv.verify_sharded_chunked_pack(engine._mesh, prep,
+                                               rows=rows)()().all():
+            raise RuntimeError(f"mesh scan warm-up verify returned false "
+                               f"at N={n}")
+        engine._shapes.mark_mesh_chunks(g, rows)
+        log.info("mesh scan warm-up N=%d (%d chunks of %d rows a shard) "
+                 "done in %.1fs", n, g, rows, monotonic() - t0)
+        g *= 2
+
+
+def warmup_rlc_sharded(engine: VerifyEngine, warm_max: int = MAX_SUBBATCH,
+                       scan_chunks: int | None = None) -> None:
+    """``--warm-rlc-sharded``: run the sharded one-MSM program and its
+    per-signature fallback once at every per-shard bucket from the
+    smallest to that of the largest routed launch (``warm_max``, floored
+    at the served committee's quorum: 667 votes at N = 1000) and mark
+    each, so the router starts choosing ``rlc_sharded``; then the
+    whole-backlog scan leg and the launch-cap raise.  The reference's
+    ``_warmup_rlc_sharded``, with the same marks."""
+    from ..crypto import eddsa
+    from ..parallel import sharded_verify as shv
+
+    n_dev = engine._shapes.n_devices
+    if n_dev < 2 or engine._mesh is None:
+        log.warning("--warm-rlc-sharded ignored: no device mesh")
+        return
+    msg = b"\x02" * 32
+    pk, sig = _warm_record(msg)
+    per = shv.shard_bucket(1, n_dev)
+    cap = min(max(warm_max, engine._shapes.qc_sigs or 0), MAX_SUBBATCH)
+    top = shv.shard_bucket(cap, n_dev)
+    while per <= top:
+        n = n_dev * per
+        t0 = monotonic()
+        prep = eddsa.prepare_batch([msg] * n, [pk] * n, [sig] * n)
+        for what, pack in (("per-signature", shv.verify_batch_sharded_pack),
+                           ("RLC", shv.verify_rlc_sharded_pack)):
+            if not pack(engine._mesh, prep)()().all():
+                raise RuntimeError(f"sharded {what} warm-up verify "
+                                   f"returned false at N={n}")
+        engine._shapes.mark_bucket(n)
+        engine._shapes.mark_rlc_sharded(n)
+        log.info("RLC sharded warm-up N=%d (per-shard bucket %d) done in "
+                 "%.1fs", n, per, monotonic() - t0)
+        per *= 2
+    warmup_mesh_scan(engine, cap, scan_chunks=scan_chunks)
+    engine.enable_bulk()
 
 
 def warmup_bls(engine: VerifyEngine, n_votes: int = 3,
@@ -1152,7 +1360,7 @@ def warmup_bls(engine: VerifyEngine, n_votes: int = 3,
     ``--warm-bls-multi N``: the N-vote distinct-digest TC check).  It
     builds the kernels and leaves the Frobenius tables and exponent
     digits on the device; no shape gates the card path, every shape
-    runs the same kernels."""
+    runs the same kernels.  A mesh engine checks the TC sharded."""
     from ..offchain import bls12381 as bls
     from ..ops import bls381 as dbls
 
@@ -1163,13 +1371,20 @@ def warmup_bls(engine: VerifyEngine, n_votes: int = 3,
         msgs = [bytes([i]) * 32 for i in range(n_votes)]
         agg = bls.aggregate([bls.sign(sk, m)
                              for (sk, _), m in zip(keys, msgs)])
-        ok = dbls.verify_aggregate_multi(pks, msgs, agg,
-                                         device=engine.device)
+        if engine._mesh is not None:
+            from ..parallel.sharded_bls import verify_aggregate_multi_sharded
+
+            ok = verify_aggregate_multi_sharded(engine._mesh, pks, msgs, agg)
+        else:
+            with engine.on_lead():
+                ok = dbls.verify_aggregate_multi(pks, msgs, agg,
+                                                 device=engine.device)
     else:
         msg = b"warmup"
         agg = bls.aggregate([bls.sign(sk, msg) for sk, _ in keys])
-        ok = dbls.verify_aggregate_common(pks, msg, agg,
-                                          device=engine.device)
+        with engine.on_lead():
+            ok = dbls.verify_aggregate_common(pks, msg, agg,
+                                              device=engine.device)
     if not ok:
         raise RuntimeError(f"BLS warm-up verify of {n_votes} votes "
                            f"(multi={multi}) returned false")
@@ -1182,11 +1397,16 @@ def serve(host: str = "127.0.0.1", port: int = 7100, device=None,
           warm_bls: bool = False, warm_bls_multi: int = 0,
           use_host: bool = False, committee: int | None = None,
           client_rate: int | None = None, trace_path: str | None = None,
-          chaos: bool = False, tcp: str | None = None):
+          chaos: bool = False, tcp: str | None = None,
+          mesh_devices: int | None = None, warm_max: int = MAX_SUBBATCH,
+          warm_rlc_sharded: bool = False):
     """Warm up (a ``use_host`` engine has nothing to warm), then run the
     sidecar until interrupted; returns the closed server.  Every boot
     gets a launch guard; ``chaos`` enables OP_CHAOS, ``tcp``
-    ("HOST:PORT") binds a second listener on the same engine."""
+    ("HOST:PORT") binds a second listener on the same engine;
+    ``mesh_devices`` N > 1 shards over a mesh (``warm_max`` bounds its
+    warmed shapes, ``warm_rlc_sharded`` adds the sharded RLC and scan
+    legs)."""
     tracer = None
     if trace_path:
         tracer = Tracer(trace_path)
@@ -1196,32 +1416,31 @@ def serve(host: str = "127.0.0.1", port: int = 7100, device=None,
         chaos_state = ChaosState()
         log.warning("chaos hook ENABLED (--chaos): OP_CHAOS requests can "
                     "degrade this sidecar")
-    engine = VerifyEngine(device=device, use_host=use_host,
-                          committee=committee, client_rate=client_rate,
-                          tracer=tracer, chaos=chaos_state)
+    engine = VerifyEngine(device=device, mesh_devices=mesh_devices,
+                          use_host=use_host, committee=committee,
+                          client_rate=client_rate, tracer=tracer,
+                          chaos=chaos_state)
     guard = None
     servers = []
     try:
         t0 = monotonic()
         if not use_host:
-            warmup(engine)
-            if warm_bls:
-                warmup_bls(engine)
-            if warm_bls_multi:
-                warmup_bls(engine, warm_bls_multi, multi=True)
-
-            def rewarm():
-                # The reboot re-runs the legs this boot ran, against the
-                # loaded kernel library: no nvcc, only the device tables.
-                warmup(engine)
+            def warm():
+                warmup(engine, warm_max)
+                if warm_rlc_sharded:
+                    warmup_rlc_sharded(engine, warm_max)
                 if warm_bls:
                     warmup_bls(engine)
                 if warm_bls_multi:
                     warmup_bls(engine, warm_bls_multi, multi=True)
 
-            engine._rewarm_fn = rewarm
+            warm()
+            # The reboot re-runs the legs this boot ran, against the
+            # loaded kernel library: no nvcc, only the device tables.
+            engine._rewarm_fn = warm
         log.info("warm-up on %s done in %.1fs",
-                 "the host" if use_host else engine.device, monotonic() - t0)
+                 "the host" if use_host else engine._mesh or engine.device,
+                 monotonic() - t0)
         # Built after the warm-up, whose outcome sets the deadline class
         # (the kernel library is loaded now); host boots are warm.
         guard = LaunchGuard(deadlines=LaunchDeadlines(warm_boot=True)
@@ -1245,7 +1464,7 @@ def serve(host: str = "127.0.0.1", port: int = 7100, device=None,
     server = servers[0]
     for srv, what in zip(servers, ("sidecar", "sidecar fleet")):
         log.info("%s listening on %s:%d (%s)", what, *srv.server_address[:2],
-                 "host crypto" if use_host else engine.device)
+                 "host crypto" if use_host else engine._mesh or engine.device)
     # The second listener shares the engine, scheduler, verdict cache and
     # chaos state; its tenant registry is its own.
     extra = [threading.Thread(
@@ -1270,14 +1489,10 @@ def serve(host: str = "127.0.0.1", port: int = 7100, device=None,
 # Flags of the reference's CLI whose machinery the port has not ported:
 # each exits with the ROADMAP item that ports it, never ignored.
 NOT_PORTED = {
-    "mesh": "sharding verify over several cards (--mesh N, N > 1) is "
-            "ROADMAP Queue A item 5 (parallel/ over torch.distributed)",
     "cadence": "the cadence ring (--cadence, sidecar/ring.py) is ROADMAP "
                "Queue A item 3, the rest of it: the ring runs on "
                "Scheduler.next_tick and the guard's tick: deadlines, "
                "both ported",
-    "warm_rlc_sharded": "the sharded RLC programs of --mesh N "
-                        "(--warm-rlc-sharded) are ROADMAP Queue A item 5",
 }
 
 
@@ -1319,18 +1534,34 @@ def main(argv=None):
                     help="bind a second listener (same engine and "
                          "scheduler) on HOST:PORT for remote tenants")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="not ported for N > 1: " + NOT_PORTED["mesh"])
-    for flag in ("cadence", "warm_rlc_sharded"):
-        ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
-                        help="not ported: " + NOT_PORTED[flag])
+                    help="shard verify over a mesh of N cards from this "
+                         "process (N CPU shards with --device cpu; 0 = "
+                         "one device)")
+    ap.add_argument("--warm", type=int, default=MAX_SUBBATCH, metavar="N",
+                    help="with --mesh N: the largest batch the mesh "
+                         "warm-up runs and marks (powers of two up to it; "
+                         "the default covers every launchable shape)")
+    ap.add_argument("--warm-rlc-sharded", action="store_true",
+                    help="with --mesh N: run and mark the sharded one-MSM "
+                         "program and its per-signature fallback at every "
+                         "per-shard bucket, then the whole-backlog scan "
+                         "shapes, so coalesced batches of %d+ route "
+                         "through the sharded combined check and bulk "
+                         "backlogs drain in one launch"
+                         % vsched.RLC_MIN_LAUNCH)
+    ap.add_argument("--cadence", action="store_true",
+                    help="not ported: " + NOT_PORTED["cadence"])
     ap.add_argument("-v", "--verbose", action="count", default=0)
     args = ap.parse_args(argv)
-    for flag in ("cadence", "warm_rlc_sharded"):
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} is not ported: "
-                     f"{NOT_PORTED[flag]}")
-    if args.mesh > 1:
-        ap.error(f"--mesh {args.mesh} is not ported: {NOT_PORTED['mesh']}")
+    if args.cadence:
+        ap.error(f"--cadence is not ported: {NOT_PORTED['cadence']}")
+    if args.mesh > 1 and args.device == "cuda":
+        import torch
+
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < args.mesh:
+            ap.error(f"--mesh {args.mesh}: need {args.mesh} devices, "
+                     f"have {have}")
     if args.tcp is not None:
         tcp_port = args.tcp.rpartition(":")[2]
         if not tcp_port.isdigit():
@@ -1343,7 +1574,8 @@ def main(argv=None):
           warm_bls_multi=args.warm_bls_multi, use_host=args.host_crypto,
           committee=args.committee or None,
           client_rate=args.client_rate or None, trace_path=args.trace,
-          chaos=args.chaos, tcp=args.tcp)
+          chaos=args.chaos, tcp=args.tcp, mesh_devices=args.mesh or None,
+          warm_max=args.warm, warm_rlc_sharded=args.warm_rlc_sharded)
 
 
 if __name__ == "__main__":

@@ -406,3 +406,64 @@ def test_pairings_check_on_card_runs_the_tower_kernels(card, kind):
     assert got == host.verify_aggregate(pks, msgs, agg) == (kind != "forged QC")
     assert {k: v for k, v in kern.LAUNCHES.items() if v} == {
         "miller_accumulate": 1, "final_exp": 1}
+
+
+@pytest.mark.parametrize("rows", [1, 17, 68])
+def test_fq12_product_equals_plain_on_card(card, rows):
+    """The shard's fold: the product of ``rows`` Fq12 values (random
+    Montgomery limbs, all-511 weak limbs in row 0), exact against its
+    plain version, one launch."""
+    x = _fq12_rows(rows, np.random.default_rng(70 + rows)).to(card)
+    got = _launched("fq12_product", lambda: FT.fq12_product(x))
+    assert torch.equal(got, FT.fq12_product_plain(x))
+
+
+def _mesh_batch(n, forged=()):
+    keys = [ref.generate_keypair(bytes([71, i]) * 16) for i in range(n)]
+    msgs = [bytes([72, i]) * 16 for i in range(n)]
+    sigs = [ref.sign(sk, m) for (sk, _), m in zip(keys, msgs)]
+    for i in forged:
+        sigs[i] = ref.sign(keys[i][0], b"forged")
+    return msgs, [pk for _, pk in keys], sigs
+
+
+def test_two_shard_mesh_on_card_rlc_and_bls(card):
+    """A 2-shard virtual_mesh on the card: the sharded RLC program on a
+    valid batch (one combined check, launches on both shards and the
+    lead) and on a batch with a forged vote (bisection), masks equal to
+    the one-card program's; the sharded BLS TC true and forged, equal to
+    the host reference."""
+    from hotstuff_tpu_torch.offchain import bls12381 as pbls
+    from hotstuff_tpu_torch.parallel import sharded_bls, sharded_verify
+    from hotstuff_tpu_torch.parallel.mesh import virtual_mesh
+
+    mesh = virtual_mesh(2, card)
+    for forged in ((), (5,)):
+        msgs, pks, sigs = _mesh_batch(20, forged)
+        want = D.verify_batch(msgs, pks, sigs, device=card)
+        mesh.reset_launches()
+        bisected = []
+        got = sharded_verify.verify_rlc_sharded_pack(
+            mesh, D.prepare_batch(msgs, pks, sigs),
+            on_bisect=lambda: bisected.append(1))()()
+        assert got.tolist() == want.tolist()
+        assert got.sum() == 20 - len(forged)
+        assert bisected == ([1] if forged else [])
+        for shard in (0, 1):
+            assert mesh.launches[shard]["msm_window_accum"] >= 1
+        assert mesh.launches["lead"]["rlc_reduce"] >= 1
+    keys = [pbls.key_gen(bytes([73, i]) * 16) for i in range(3)]
+    pks = [pk for _, pk in keys]
+    msgs = [bytes([i]) * 32 for i in range(3)]
+    sigs = [pbls.sign(sk, m) for (sk, _), m in zip(keys, msgs)]
+    for agg, want in ((pbls.aggregate(sigs), True),
+                      (pbls.aggregate(sigs[:2] + [pbls.sign(keys[2][0],
+                                                            b"x")]), False)):
+        mesh.reset_launches()
+        assert sharded_bls.verify_aggregate_multi_sharded(
+            mesh, pks, msgs, agg) is want
+        assert host.verify_aggregate(pks, msgs, agg) is want
+        assert mesh.launches == {
+            0: {"miller_accumulate": 1, "fq12_product": 1},
+            1: {"miller_accumulate": 1, "fq12_product": 1},
+            "lead": {"final_exp": 1}}

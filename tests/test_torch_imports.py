@@ -67,7 +67,9 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "sidecar.guard", "sidecar.sched.classes",
                  "sidecar.sched.tenantq", "sidecar.sched.scheduler",
                  "sidecar.sched.surge", "sidecar.sched.shapes",
-                 "sidecar.sched.stats"):
+                 "sidecar.sched.stats", "parallel.mesh",
+                 "parallel.shard_shapes", "parallel.sharded_verify",
+                 "parallel.sharded_bls", "__graft_entry__"):
         assert f"hotstuff_tpu_torch.{name}" in mods
     proc = _run(_CHECK.format(repo=REPO, mods=mods))
     assert proc.returncode == 0, proc.stderr
@@ -82,6 +84,8 @@ from hotstuff_tpu_torch.crypto import eddsa, ref_ed25519 as ref
 from hotstuff_tpu_torch.offchain import bls12381 as bls
 from hotstuff_tpu_torch.ops import bls381
 from hotstuff_tpu_torch.sidecar.service import VerifyEngine
+from hotstuff_tpu_torch.parallel.mesh import make_mesh, virtual_mesh
+from hotstuff_tpu_torch import __graft_entry__ as graft
 assert not torch.cuda.is_available()
 sk, pk = ref.generate_keypair(b"\x07" * 32)
 sig = ref.sign(sk, b"m")
@@ -94,6 +98,8 @@ calls = [
     lambda: bls381.verify_aggregate_common([bpk], b"m", bsig),
     lambda: bls381.verify_aggregate_multi([bpk], [b"m"], bsig),
     lambda: VerifyEngine(),
+    lambda: virtual_mesh(2, "cuda:0"),
+    lambda: graft.entry(),
 ]
 for call in calls:
     try:
@@ -103,6 +109,16 @@ for call in calls:
     else:
         raise SystemExit("an entry ran without a card or device='cpu'")
 assert eddsa.verify(pk, b"m", sig, device="cpu")
+# A mesh of cards needs the cards: the JAX package's device-count error,
+# never CPU shards in their place.
+for call in (lambda: make_mesh(2), lambda: VerifyEngine(mesh_devices=2),
+             lambda: graft.dryrun_multichip(2)):
+    try:
+        call()
+    except ValueError as e:
+        assert "need 2 devices, have 0" in str(e), e
+    else:
+        raise SystemExit("a mesh was built without its cards")
 print("ok")
 """
 

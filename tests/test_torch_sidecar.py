@@ -80,7 +80,7 @@ def test_ping_verify_bulk_and_stats(sidecar):
                                      "rlc_scalars", "rlc_reduce",
                                      "fq12_mul", "miller_accumulate",
                                      "fq12_pow", "fq_pow", "fq12_hard_pow",
-                                     "final_exp"}
+                                     "final_exp", "fq12_product"}
 
 
 def test_full_queue_answers_busy():

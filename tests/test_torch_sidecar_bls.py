@@ -182,7 +182,9 @@ def test_warm_bls_flags_reach_the_boot(monkeypatch):
     service.main(["--device", "cpu", "--warm-bls", "--warm-bls-multi", "5"])
     service.main(["--device", "cpu"])
     rest = {"use_host": False, "committee": None, "client_rate": None,
-            "trace_path": None, "chaos": False, "tcp": None}
+            "trace_path": None, "chaos": False, "tcp": None,
+            "mesh_devices": None, "warm_max": 1024,
+            "warm_rlc_sharded": False}
     assert calls == [
         {"device": "cpu", "warm_bls": True, "warm_bls_multi": 5, **rest},
         {"device": "cpu", "warm_bls": False, "warm_bls_multi": 0, **rest}]

@@ -182,9 +182,7 @@ def test_main_takes_the_integration_tests_flags(monkeypatch, extra):
     assert seen["committee"] is None and seen["client_rate"] is None
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--mesh", "4"], "item 5"), (["--cadence"], "item 3"),
-    (["--mesh", "4", "--warm-rlc-sharded"], "item 5")])
+@pytest.mark.parametrize("argv,item", [(["--cadence"], "item 3")])
 def test_unported_flags_exit_nonzero(monkeypatch, capsys, argv, item):
     monkeypatch.setattr(service, "serve", lambda *a, **kw: None)
     with pytest.raises(SystemExit) as exc:
@@ -192,6 +190,32 @@ def test_unported_flags_exit_nonzero(monkeypatch, capsys, argv, item):
     assert exc.value.code != 0
     err = capsys.readouterr().err
     assert "not ported" in err and f"ROADMAP Queue A {item}" in err
+
+
+@pytest.mark.parametrize("argv", [["--mesh", "4"],
+                                  ["--mesh", "4", "--warm-rlc-sharded"]])
+def test_mesh_flags_without_cards_exit_nonzero(monkeypatch, capsys, argv):
+    """--mesh N is served since the port of parallel/; on a host with
+    fewer than N cards (and no --device cpu) it exits with the
+    reference's device-count error, before serve()."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(service, "serve", lambda *a, **kw: None)
+    with pytest.raises(SystemExit) as exc:
+        service.main(argv)
+    assert exc.value.code != 0
+    assert "need 4 devices, have 0" in capsys.readouterr().err
+
+
+def test_mesh_flags_reach_serve(monkeypatch):
+    seen = _main(monkeypatch, ["--device", "cpu", "--mesh", "4",
+                               "--warm-rlc-sharded", "--warm", "64"])
+    assert {k: seen[k] for k in ("device", "mesh_devices", "warm_max",
+                                 "warm_rlc_sharded")} == {
+        "device": "cpu", "mesh_devices": 4, "warm_max": 64,
+        "warm_rlc_sharded": True}
+    assert "scan_chunks" not in seen
 
 
 @pytest.mark.parametrize("argv,want", [
