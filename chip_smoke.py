@@ -94,13 +94,43 @@ Phases, in order; any failure ends the run with a non-zero exit:
      of 67 votes over 67 digests (68 rows, 17 a shard) and a TC of 3
      with a wrong-digest vote, each line with its path, mask or verdict
      (equal to the one-card program's on the card and the host
-     reference's), launches per shard and on the lead, and wall time.
+     reference's), launches per shard and on the lead, and wall time;
+ 12. the cadence ring (sidecar/ring.py) on the card, every engine under
+     one launch guard: 12 QCs of 67 votes of a 100-key committee, one
+     tampered vote each, offered one every 5 ms to the staged engine
+     and to the ring pinned at depths 2, 4 and 8 (a fresh engine each),
+     then to the staged engine again (the ring's ratio is to the mean
+     of the two staged legs), sigs/s and per-request latency for each,
+     every mask equal to the host reference's; 16 valid QCs to the
+     staged engine and to a fresh ring seeded with the warm-up's walls
+     (its trainer's state printed); a ring whose depth
+     trainer is seeded with the warm-up's walls: the same load, a bulk
+     backlog of 1024 (64 requests of 16) with a QC offered behind its
+     first half (the QC's tick pad-fills), its OP_STATS ``cadence``
+     section (no generation drop; a ``tick:`` deadline trained), then a
+     chaos wedge under the ring (the host ladder answers, the ring falls
+     back to the staged loop, one reply per request id, the next QC
+     from the card); a sidecar process booted with --cadence
+     --warm-bls (its log shows the ring engaged and the BLS self-check
+     exact before the socket binds) answering a QC, OP_STATS ``cadence``;
+     last, four shards of the card with the ring and
+     committee 1000: 3 votes and a twin with a forged vote armed
+     through ring_slot_pack at the ring's fixed rows (ladder_sharded),
+     a QC of 667 (rlc_sharded), masks equal to verify_batch_sharded_pack
+     and the host reference, launches per shard and on the lead;
+ 13. the off-chain suite (offchain/) on the card: the three self-checks
+     (field25519.mul_selfcheck, field381.mul_selfcheck,
+     bls381.selfcheck), measure_single for EdDSA, ECDSA, Schnorr and
+     BLS, measure_batch at 20, 160 and 300 with both device columns
+     (every mask and verdict true, each row naming the card), and
+     measure_message_length at three lengths.
 
 The line before the last is a JSON object listing the kernels with
 their launches on the main paths (over the requests, the probe's at
 boot, and one request of each kind; the Fq12 kernels over the BLS
 requests; fq12_product over phase 11's; ``launches_mesh`` over phase
-11's requests; the probe's library time is torch.add's), times and
+11's requests, ``launches_ring`` over phase 12's, ``launches_offchain``
+over phase 13; the probe's library time is torch.add's), times and
 bounds;
 the last line is {"ok": true, "device":
 {...}}.  Without a CUDA device, or without the rest of the repository
@@ -1545,6 +1575,52 @@ HARNESS_FLAGS = "--port {port} --committee 4 --client-rate 1000 --warm-rlc " \
     "--trace {trace}"
 
 
+def start_sidecar(flags: str, log_name: str, env=None):
+    """Boot ``python -m hotstuff_tpu_torch.sidecar`` with ``flags`` (a
+    free port filled into ``{port}``) in a process of its own, its output
+    in build/chip/``log_name``, and wait until it answers PING.  Returns
+    (the process, the port, the argv, the log's path, seconds to the
+    PING)."""
+    import socket
+
+    from hotstuff_tpu_torch.sidecar.client import SidecarClient
+
+    work = os.path.join(REPO, "build", "chip")
+    os.makedirs(work, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = flags.format(port=port).split()
+    log_path = os.path.join(work, log_name)
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "hotstuff_tpu_torch.sidecar", *argv],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, **(env or {})})
+    while True:
+        try:
+            with SidecarClient(port=port, timeout=10) as c:
+                c.ping()
+            return proc, port, argv, log_path, time.monotonic() - t0
+        except (ConnectionError, OSError):
+            if proc.poll() is not None or time.monotonic() - t0 > 600:
+                stop_process(proc)
+                with open(log_path) as f:
+                    fail(f"the sidecar with {argv} did not come up:\n"
+                         + f.read()[-4000:])
+            time.sleep(0.5)
+
+
+def stop_process(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
 def wire_phase(reqs, want) -> None:
     """Phase 9: the port's sidecar as the harness boots it, in a process
     of its own on the card: OP_HELLO is answered with the reference's
@@ -1564,29 +1640,11 @@ def wire_phase(reqs, want) -> None:
     trace = os.path.join(work, "sidecar-spans.jsonl")
     if os.path.exists(trace):
         os.remove(trace)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    argv = HARNESS_FLAGS.format(port=port, trace=trace).split()
-    log_path = os.path.join(work, "sidecar.log")
-    t0 = time.monotonic()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "hotstuff_tpu_torch.sidecar", *argv],
-            cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    proc, port, argv, _, boot_s = start_sidecar(
+        HARNESS_FLAGS.replace("{trace}", trace), "sidecar.log")
     try:
-        while True:
-            try:
-                with SidecarClient(port=port, timeout=10) as c:
-                    c.ping()
-                break
-            except (ConnectionError, OSError):
-                if proc.poll() is not None or time.monotonic() - t0 > 600:
-                    fail(f"the sidecar with {argv} did not come up:\n"
-                         + open(log_path).read()[-4000:])
-                time.sleep(0.5)
         print(f"wire: the sidecar with the harness's flags {argv} "
-              f"listening after {time.monotonic() - t0:.3f} s", flush=True)
+              f"listening after {boot_s:.3f} s", flush=True)
         with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
             for frame, want_reply, what in (
                     (proto.encode_hello_request(1, "node"),
@@ -1610,12 +1668,7 @@ def wire_phase(reqs, want) -> None:
         print(f"wire: a QC after HELLO, mask equal to the host reference; "
               f"paths {paths}", flush=True)
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+        stop_process(proc)
     spans, malformed = parse_spans(open(trace).read())
     stages = sorted({r["stage"] for r in spans})
     if malformed or not {"admit", "queue", "pack", "dispatch", "device",
@@ -1690,19 +1743,8 @@ def guard_phase() -> None:
     print(f"guard: signed 11 QCs, 3 bulk batches and 2 BLS QCs in "
           f"{time.monotonic() - t0:.3f} s", flush=True)
 
-    work = os.path.join(REPO, "build", "chip")
-    os.makedirs(work, exist_ok=True)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    argv = GUARD_FLAGS.format(port=port).split()
-    log_path = os.path.join(work, "sidecar-guard.log")
-    t0 = time.monotonic()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "hotstuff_tpu_torch.sidecar", *argv],
-            cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
-            env={**os.environ, **GUARD_ENV})
+    proc, port, argv, log_path, boot_s = start_sidecar(
+        GUARD_FLAGS, "sidecar-guard.log", GUARD_ENV)
 
     def log_tail() -> str:
         with open(log_path) as f:
@@ -1722,17 +1764,8 @@ def guard_phase() -> None:
         check(False, f"timed out waiting for {what}")
 
     try:
-        while True:
-            try:
-                with SidecarClient(port=port, timeout=10) as c:
-                    c.ping()
-                break
-            except (ConnectionError, OSError):
-                check(proc.poll() is None and time.monotonic() - t0 < 600,
-                      f"the sidecar with {argv} did not come up")
-                time.sleep(0.5)
         print(f"guard: sidecar {argv} with {GUARD_ENV} listening after "
-              f"{time.monotonic() - t0:.3f} s", flush=True)
+              f"{boot_s:.3f} s", flush=True)
         with SidecarClient(port=port, timeout=120) as c, \
                 SidecarClient(port=port, timeout=120) as watch:
             def timed(fn, *args, **kw):
@@ -1916,12 +1949,7 @@ def guard_phase() -> None:
             print(f"guard: OP_STATS guard {json.dumps(g, sort_keys=True)}",
                   flush=True)
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+        stop_process(proc)
 
 
 # ---------------------------------------------------------------------------
@@ -2100,7 +2128,8 @@ def mesh_phase(dev, rng) -> tuple:
     after.  Every mask and verdict must equal the one-card program's on
     the same card and the host reference's.  Returns (the fq12_product
     row, launch counts over the requests, the _tree_sum check's
-    fields)."""
+    fields, and phase 11's Ed25519 requests with their host masks for
+    phase 12's mesh leg)."""
     import queue
 
     import numpy as np
@@ -2245,7 +2274,532 @@ def mesh_phase(dev, rng) -> tuple:
             fail(f"kernel {name} was not launched by the mesh requests")
     print(f"kernel launches over the mesh requests: "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-    return product_row, launches, tree
+    return product_row, launches, tree, (reqs, want)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the cadence ring on the card
+# ---------------------------------------------------------------------------
+
+RING_COMMITTEE = 100
+RING_QCS, RING_VOTES = 12, 67
+# Valid QCs (no bisection) for the second load, staged against the ring.
+RING_VALID_QCS = 16
+# The fixed offered load: one QC of 67 votes every 5 ms (the reference's
+# bench.py cadence_probe offers 12 requests at once from the host).
+RING_INTERVAL_S = 0.005
+RING_BULK, RING_BULK_REQ = 1024, 16
+# The sidecar process of the phase's wire leg.
+RING_FLAGS = "--port {port} --cadence --committee 100 --warm-bls"
+# A short warm grace for the phase's guard, so that the wedge leg's
+# wedge is declared in seconds even before the tick keys are trained.
+RING_WARM_GRACE_S = 5.0
+# The kernels the ring's requests must launch: the RLC program, and the
+# per-signature program of the bisection.
+RING_KERNELS = ("field_mul", "msm_window_accum", "point_ladder",
+                "decompress", "point_multiples", "rlc_scalars", "rlc_reduce")
+
+
+def make_ring_requests() -> dict:
+    """A 100-key Ed25519 committee from a fixed seed: 12 QCs of 67 votes
+    over distinct digests, each with one tampered signature (byte 1
+    flipped, as the reference's cadence probe); 16 valid QCs; a bulk
+    backlog of 1024
+    signatures in requests of 16 and a QC of 67 behind it; and two QCs
+    for the wedge leg (one tampered vote each).  Host masks beside
+    each."""
+    import hashlib
+
+    from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
+
+    def seed(tag: str, i: int) -> bytes:
+        return hashlib.sha256(f"chip-smoke/ring/{tag}/{i}".encode()).digest()
+
+    committee = [ref.generate_keypair(seed("replica", i))
+                 for i in range(RING_COMMITTEE)]
+
+    def request(msgs, keys, tamper=None):
+        sigs = [ref.sign(sk, m) for (sk, _), m in zip(keys, msgs)]
+        if tamper is not None:
+            s = sigs[tamper]
+            sigs[tamper] = s[:1] + bytes([s[1] ^ 0xFF]) + s[2:]
+        pks = [pk for _, pk in keys]
+        want = [bool(ref.verify(pk, m, s)) for m, pk, s in zip(msgs, pks,
+                                                                sigs)]
+        return (msgs, pks, sigs), want
+
+    def qc(tag, block, tamper=None):
+        return request([seed(tag, block)] * RING_VOTES,
+                       committee[:RING_VOTES], tamper)
+
+    bulk = [request([seed("tx", r * RING_BULK_REQ + j)
+                     for j in range(RING_BULK_REQ)],
+                    [committee[(r + j) % RING_COMMITTEE]
+                     for j in range(RING_BULK_REQ)])
+            for r in range(RING_BULK // RING_BULK_REQ)]
+    return {"qcs": [qc("block", b, tamper=(5 * b + 3) % RING_VOTES)
+                    for b in range(RING_QCS)],
+            "valid": [qc("valid", b) for b in range(RING_VALID_QCS)],
+            "bulk": bulk, "behind": qc("behind", 0),
+            "wedge": [qc("wedge", b, tamper=(11 + b) % RING_VOTES)
+                      for b in range(2)]}
+
+
+class _Replies:
+    """Every reply per request id, with its arrival time."""
+
+    def __init__(self):
+        self.done: dict = {}
+        self.cond = threading.Condition()
+
+    def to(self, rid):
+        def reply(mask):
+            with self.cond:
+                self.done.setdefault(rid, []).append(
+                    (time.monotonic(), mask))
+                self.cond.notify_all()
+        return reply
+
+    def wait(self, rids, timeout=300.0) -> bool:
+        with self.cond:
+            return self.cond.wait_for(
+                lambda: all(r in self.done for r in rids), timeout=timeout)
+
+
+def ring_offer(engine, replies, rid0, reqs, cls, interval_s=0.0) -> dict:
+    """Offer ``reqs`` ((msgs, pks, sigs), want) from this thread, one
+    every ``interval_s``, from request id ``rid0`` on; -> {rid: offer
+    time}."""
+    from hotstuff_tpu_torch.sidecar import protocol as proto
+
+    sent = {}
+    t0 = time.monotonic()
+    for i, ((msgs, pks, sigs), _) in enumerate(reqs):
+        wait = t0 + i * interval_s - time.monotonic()
+        if wait > 0:
+            time.sleep(wait)
+        rid = rid0 + i
+        sent[rid] = time.monotonic()
+        if not engine.submit(proto.VerifyRequest(rid, msgs, pks, sigs),
+                             replies.to(rid), cls=cls):
+            fail(f"ring: the engine refused request {rid}")
+    return sent
+
+
+def ring_check(label, replies, sent, reqs) -> list:
+    """Every request answered exactly once with the host mask; -> the
+    per-request latencies in ms."""
+    if not replies.wait(list(sent)):
+        fail(f"ring {label}: not every request was answered")
+    lat = []
+    for (rid, t_sent), (_, want) in zip(sent.items(), reqs):
+        got = replies.done[rid]
+        if len(got) != 1:
+            fail(f"ring {label}: request {rid} got {len(got)} replies")
+        t_reply, mask = got[0]
+        if mask is None or list(mask) != want:
+            fail(f"ring {label}: request {rid}'s mask differs from the "
+                 f"host reference")
+        lat.append((t_reply - t_sent) * 1e3)
+    return lat
+
+
+def ring_phase(dev, mesh_reqs) -> dict:
+    """Phase 12: the cadence ring on the card.  One guard (warm grace
+    RING_WARM_GRACE_S) supervises every engine of the phase.  The fixed
+    load of 12 QCs goes through the staged engine, the ring pinned at
+    depths 2, 4 and 8 and the staged engine again (a fresh engine each,
+    so no verdict is cached), every mask equal to the host reference's;
+    16 valid QCs through the staged engine and a fresh ring seeded with
+    the warm-up's walls; then a ring engine whose depth trainer is
+    seeded with the warm-up's walls (as ``serve()`` does): the same
+    load, a bulk backlog of 1024
+    with a QC behind it (that tick pad-fills), its OP_STATS ``cadence``
+    section, and a chaos wedge under the ring (fallback to the staged
+    loop, one reply per request, the next QC from the card); last, four
+    shards of the card with the ring: 3 votes and a twin with a forged
+    vote through ``ring_slot_pack`` (``ladder_sharded``), and a QC of
+    667 (``rlc_sharded``).  Returns the launches over the phase's
+    requests."""
+    import numpy as np
+
+    from hotstuff_tpu_torch.crypto import eddsa
+    from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
+    from hotstuff_tpu_torch.ops import kern
+    from hotstuff_tpu_torch.parallel import sharded_verify as shv
+    from hotstuff_tpu_torch.parallel.mesh import virtual_mesh
+    from hotstuff_tpu_torch.sidecar import service
+    from hotstuff_tpu_torch.sidecar.client import SidecarClient
+    from hotstuff_tpu_torch.sidecar.guard import LaunchDeadlines, LaunchGuard
+    from hotstuff_tpu_torch.sidecar.ring import CadenceRing, RingDepth
+    from hotstuff_tpu_torch.sidecar.sched import BULK, LATENCY
+
+    t0 = time.monotonic()
+    data = make_ring_requests()
+    n_records = sum(len(r[0][0]) for key in ("qcs", "valid", "bulk")
+                    for r in data[key]) + RING_VOTES * 3
+    print(f"ring: signed and host-verified {n_records} records in "
+          f"{time.monotonic() - t0:.3f} s", flush=True)
+    guard = LaunchGuard(deadlines=LaunchDeadlines.from_build(
+        dev, warm_grace_s=RING_WARM_GRACE_S))
+    totals: dict = {}
+
+    def counted(fn):
+        kern.reset_launches()
+        out = fn()
+        for k, v in kern.LAUNCHES.items():
+            totals[k] = totals.get(k, 0) + v
+        return out
+
+    def boot(**kw):
+        engine = service.VerifyEngine(device=dev, committee=RING_COMMITTEE,
+                                      **kw)
+        walls = service.warmup(engine)
+        engine._guard = guard
+        return engine, walls
+
+    def load(engine, label, rid0, key="qcs"):
+        replies = _Replies()
+        reqs = data[key]
+
+        def run():
+            t = time.monotonic()
+            sent = ring_offer(engine, replies, rid0, reqs, LATENCY,
+                              RING_INTERVAL_S)
+            lat = ring_check(label, replies, sent, reqs)
+            return lat, time.monotonic() - t
+
+        lat, wall = counted(run)
+        snap = engine.stats_snapshot()
+        n_sigs = sum(len(r[0][0]) for r in reqs)
+        row = {"sigs_per_s": n_sigs / wall, "wall_ms": wall * 1e3,
+               "latency_ms_p50": float(np.median(lat)),
+               "latency_ms_max": max(lat), "launches": snap["launches"],
+               "paths": snap["paths"]}
+        cad = snap.get("cadence")
+        tail = ""
+        if cad is not None:
+            row["cadence"] = {k: cad[k] for k in (
+                "depth", "ticks", "dispatch_ticks", "occupancy_hist")}
+            tail = (f", depth {cad['depth']}, ticks {cad['ticks']} "
+                    f"({cad['dispatch_ticks']} dispatch), occupancy "
+                    f"{json.dumps(cad['occupancy_hist'])}, trainer "
+                    f"{json.dumps(cad['depth_trainer'])}")
+            if cad["generation"]["drops"]:
+                fail(f"ring {label}: generation drops {cad['generation']}")
+        what = "one tampered vote each" if key == "qcs" else "valid"
+        print(f"ring {label}: {len(reqs)} QCs of {RING_VOTES} ({what}) "
+              f"offered every {RING_INTERVAL_S * 1e3:.0f} ms: "
+              f"{row['sigs_per_s']:.1f} sigs/s, wall {row['wall_ms']:.3f} "
+              f"ms, latency p50 {row['latency_ms_p50']:.3f} / max "
+              f"{row['latency_ms_max']:.3f} ms, launches {row['launches']},"
+              f" paths {json.dumps(row['paths'])}{tail}", flush=True)
+        return row
+
+    results = {}
+    try:
+        engine, _ = boot()
+        try:
+            if engine._ring is not None:
+                fail("ring: a default engine runs the ring")
+            results["staged"] = load(engine, "staged", 1000)
+        finally:
+            engine.stop()
+        for k in RingDepth.DEPTHS:
+            engine, _ = boot(ring_factory=lambda e, k=k: CadenceRing(
+                e, depth=RingDepth(pinned=k)))
+            try:
+                results[f"ring k={k}"] = load(engine, f"ring k={k}",
+                                              1000 * (k + 1))
+                if results[f"ring k={k}"]["cadence"]["depth"] != k:
+                    fail(f"ring k={k}: the ring ran at another depth")
+            finally:
+                engine.stop()
+        # The staged engine again: the legs run in a fixed order, so the
+        # ring legs are compared with a staged leg on either side.
+        engine, _ = boot()
+        try:
+            results["staged, last"] = load(engine, "staged, last", 10000)
+        finally:
+            engine.stop()
+        # The valid QCs (no bisection): staged, then a fresh trained ring.
+        engine, _ = boot()
+        try:
+            results["staged, valid"] = load(engine, "staged, valid", 11000,
+                                            "valid")
+        finally:
+            engine.stop()
+        engine, walls = boot(cadence=True)
+        try:
+            engine._ring.depth.seed(walls)
+            results["ring trained, valid"] = load(
+                engine, "ring trained, valid", 12000, "valid")
+        finally:
+            engine.stop()
+
+        # The trained ring: the load, the bulk backlog, OP_STATS, the wedge.
+        chaos = service.ChaosState()
+        engine, walls = boot(cadence=True, chaos=chaos)
+        try:
+            engine._ring.depth.seed(walls)
+            print(f"ring trained: warm-up walls "
+                  f"{ {k: round(v * 1e3, 3) for k, v in walls.items()} } ms "
+                  f"seed the depth trainer "
+                  f"{json.dumps(engine._ring.depth.snapshot())}", flush=True)
+            results["ring trained"] = load(engine, "ring trained", 20000)
+            replies = _Replies()
+
+            def backlog():
+                # The QC goes in behind the backlog's first half, so the
+                # second half is queued whenever the ring takes the QC.
+                half = len(data["bulk"]) // 2
+                t = time.monotonic()
+                sent = ring_offer(engine, replies, 30000,
+                                  data["bulk"][:half], BULK)
+                sent.update(ring_offer(engine, replies, 31000,
+                                       [data["behind"]], LATENCY))
+                sent.update(ring_offer(engine, replies, 30000 + half,
+                                       data["bulk"][half:], BULK))
+                lat = ring_check("bulk backlog", replies, sent,
+                                 data["bulk"][:half] + [data["behind"]]
+                                 + data["bulk"][half:])
+                return lat[half], time.monotonic() - t
+
+            lat, wall = counted(backlog)
+            snap = engine.stats_snapshot()
+            cad = snap["cadence"]
+            print(f"ring trained: bulk backlog of {RING_BULK} "
+                  f"({RING_BULK // RING_BULK_REQ} requests of "
+                  f"{RING_BULK_REQ}) with a QC of {RING_VOTES} behind its "
+                  f"first half: wall {wall * 1e3:.3f} ms, the QC's latency "
+                  f"{lat:.3f} ms,"
+                  f" pad-fill {json.dumps(cad['pad_fill'])}", flush=True)
+            if not cad["pad_fill"]["sigs"]:
+                fail("ring: no tick pad-filled from the bulk backlog")
+            deadlines = guard.snapshot()["deadlines"]
+            ticks = {k: v for k, v in deadlines.items()
+                     if k.startswith("tick:")}
+            print(f"ring OP_STATS cadence: {json.dumps(cad)}", flush=True)
+            print(f"ring guard deadlines: {json.dumps(deadlines)}",
+                  flush=True)
+            if cad["generation"]["drops"] or not cad["dispatch_ticks"] or \
+                    cad["fallbacks"] or not cad["queue_wait"]["n"]:
+                fail(f"ring OP_STATS cadence: {cad}")
+            if not any(v["n"] >= LaunchDeadlines.MIN_OBSERVATIONS
+                       for v in ticks.values()):
+                fail(f"ring: no tick: deadline trained ({ticks})")
+
+            # A chaos wedge under the ring.
+            (wedged, after) = data["wedge"]
+            replies = _Replies()
+            chaos.configure({"wedge": 1})
+            t = time.monotonic()
+            sent = ring_offer(engine, replies, 40000, [wedged], LATENCY)
+            lat = ring_check("wedge", replies, sent, [wedged])
+            print(f"ring wedge: the wedged QC answered by the host ladder "
+                  f"after {lat[0]:.3f} ms, ring enabled "
+                  f"{engine._ring.enabled}", flush=True)
+            if engine._ring.enabled:
+                fail("ring: the wedge did not disengage the ring")
+            t = time.monotonic()
+            while not (engine._device_ok and not engine._rebooting):
+                if time.monotonic() - t > 120:
+                    fail("ring: the reboot after the wedge did not finish")
+                time.sleep(0.01)
+            reboot_s = time.monotonic() - t
+            paths_before = dict(engine._sched.stats.paths)
+            lat = counted(lambda: ring_check(
+                "after the wedge", replies,
+                ring_offer(engine, replies, 40001, [after], LATENCY),
+                [after]))
+            launched = {k: v for k, v in kern.LAUNCHES.items() if v}
+            paths = sorted(p for p, n in engine._sched.stats.paths.items()
+                           if n > paths_before.get(p, 0))
+            cad = engine.stats_snapshot()["cadence"]
+            print(f"ring wedge: reboot done {reboot_s:.3f} s after the "
+                  f"answer; the next QC from the staged loop in "
+                  f"{lat[0]:.3f} ms, path {'+'.join(paths)}, launches "
+                  f"{launched}; cadence fallbacks {cad['fallbacks']}; "
+                  f"one reply per request id", flush=True)
+            if "rlc" not in paths or not launched.get("rlc_scalars"):
+                fail("ring: the QC after the wedge did not run on the card")
+            if cad["fallbacks"] != 1:
+                fail(f"ring: cadence fallbacks {cad['fallbacks']}")
+        finally:
+            engine.stop()
+
+        staged = (results["staged"]["sigs_per_s"]
+                  + results["staged, last"]["sigs_per_s"]) / 2
+        for label, row in results.items():
+            if label.endswith("valid"):
+                row["vs_staged"] = row["sigs_per_s"] / \
+                    results["staged, valid"]["sigs_per_s"]
+            elif not label.startswith("staged"):
+                row["vs_staged"] = row["sigs_per_s"] / staged
+
+        # The CLI: a sidecar process with --cadence (and --warm-bls, whose
+        # warm-up runs the BLS self-check before the socket binds).
+        proc, port, argv, log_path, boot_s = start_sidecar(
+            RING_FLAGS, "sidecar-ring.log")
+        try:
+            (qc, qc_want) = data["wedge"][0]
+            with SidecarClient(port=port, timeout=120) as c:
+                t = time.monotonic()
+                mask = c.verify_batch(*qc)
+                ms = (time.monotonic() - t) * 1e3
+                cad = c.stats()["cadence"]
+        finally:
+            stop_process(proc)
+        with open(log_path) as f:
+            boot_log = f.read()
+        print(f"ring wire: sidecar {argv} listening after {boot_s:.3f} s; a "
+              f"QC of {RING_VOTES} (one tampered vote) in {ms:.3f} ms; "
+              f"OP_STATS cadence enabled {cad['enabled']}, depth "
+              f"{cad['depth']}, dispatch ticks {cad['dispatch_ticks']}",
+              flush=True)
+        if mask != qc_want or not cad["enabled"] or \
+                not cad["dispatch_ticks"]:
+            fail(f"ring wire: mask equal {mask == qc_want}, cadence {cad}")
+        for line in ("cadence: ring engaged", "BLS self-check exact"):
+            if line not in boot_log:
+                fail(f"ring wire: the sidecar's log lacks {line!r}:\n"
+                     + boot_log[-4000:])
+
+        # The mesh ring slot.
+        reqs, want = mesh_reqs
+        by_label = {label: (r, w) for (label, _, r), w in zip(reqs, want)}
+        three, three_want = by_label["3 votes"]
+        msgs, pks, sigs = three
+        sigs = list(sigs)
+        sigs[1] = sigs[1][:1] + bytes([sigs[1][1] ^ 0xFF]) + sigs[1][2:]
+        twin = (msgs, pks, sigs)
+        twin_want = [bool(ref.verify(pk, m, s))
+                     for m, pk, s in zip(msgs, pks, sigs)]
+        qc, qc_want = by_label[MESH_QC_LABEL]
+        mesh_legs = [("3 votes", three, list(map(bool, three_want)),
+                      ["ladder_sharded"]),
+                     ("3 votes, one forged", twin, twin_want,
+                      ["ladder_sharded"]),
+                     (MESH_QC_LABEL, qc, list(map(bool, qc_want)),
+                      ["rlc_sharded"])]
+        mesh = virtual_mesh(MESH_SHARDS, dev)
+        for label, r, w, _ in mesh_legs[:2]:
+            got = shv.verify_batch_sharded_pack(
+                mesh, eddsa.prepare_batch(*r))()()
+            if [bool(b) for b in got] != w:
+                fail(f"ring mesh {label}: verify_batch_sharded_pack's mask "
+                     f"differs from the host reference")
+        t = time.monotonic()
+        engine = service.VerifyEngine(mesh=mesh, committee=MESH_COMMITTEE,
+                                      cadence=True)
+        try:
+            service.warmup(engine)
+            service.warmup_rlc_sharded(engine)
+            engine._guard = guard
+            ring_rows = shv.shard_aligned_rows(engine._shapes.ladder_cap(),
+                                               mesh.size)
+            print(f"ring mesh boot on {mesh} with the ring (committee "
+                  f"{MESH_COMMITTEE}): {time.monotonic() - t:.3f} s; the "
+                  f"ring's slot rows {ring_rows} ({ring_rows // mesh.size} "
+                  f"a shard)", flush=True)
+            replies = _Replies()
+            for i, (label, r, w, paths_want) in enumerate(mesh_legs):
+                mesh.reset_launches()
+                paths_before = dict(engine._sched.stats.paths)
+                lat = counted(lambda: ring_check(
+                    f"mesh {label}", replies,
+                    ring_offer(engine, replies, 50000 + i, [(r, w)],
+                               LATENCY), [(r, w)]))
+                paths = sorted(p for p, n in
+                               engine._sched.stats.paths.items()
+                               if n > paths_before.get(p, 0))
+                shards = {str(k): {n: c for n, c in v.items() if c}
+                          for k, v in mesh.launches.items()}
+                print(f"ring mesh {label}: {len(r[0])} records, "
+                      f"{len(w) - sum(w)} invalid, path {'+'.join(paths)}, "
+                      f"{lat[0]:.3f} ms, launches per shard and on the "
+                      f"lead {shards}", flush=True)
+                if paths != paths_want:
+                    fail(f"ring mesh {label}: path {paths}, expected "
+                         f"{paths_want}")
+            snap = engine.stats_snapshot()
+        finally:
+            engine.stop()
+        print(f"ring mesh OP_STATS: mesh {json.dumps(snap['mesh'])}, paths "
+              f"{json.dumps(snap['paths'])}, cadence "
+              f"{json.dumps({k: snap['cadence'][k] for k in ('depth', 'ticks', 'dispatch_ticks')})}",
+              flush=True)
+        slot = str(ring_rows // mesh.size)
+        if snap["mesh"]["shard_buckets"].get(slot, 0) < 2:
+            fail(f"ring mesh: the ladder requests were not armed at the "
+                 f"ring's {slot} rows a shard: {snap['mesh']}")
+    finally:
+        guard.close()
+    for name in RING_KERNELS:
+        if not totals.get(name):
+            fail(f"kernel {name} was not launched by the ring's requests")
+    print(f"ring phase summary: "
+          f"{json.dumps({k: {x: round(y, 3) for x, y in v.items() if isinstance(y, float)} for k, v in results.items()})}",
+          flush=True)
+    print(f"kernel launches over the ring's requests: "
+          f"{ {k: v for k, v in totals.items() if v} }", flush=True)
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the off-chain suite on the card
+# ---------------------------------------------------------------------------
+
+OFFCHAIN_SIZES = (20, 160, 300)
+OFFCHAIN_LENGTHS = (64, 704, 6400)
+# The kernels the suite's device paths must launch: K1 in the self-check
+# and the per-signature program, fq12_mul in the BLS self-check, the
+# pairing check's two.
+OFFCHAIN_KERNELS = ("field_mul", "point_ladder", "decompress", "fq12_mul",
+                    "miller_accumulate", "final_exp")
+
+
+def offchain_phase(dev) -> dict:
+    """Phase 13: the off-chain suite (hotstuff_tpu_torch/offchain/) on
+    the card: the three self-checks, measure_single for the four schemes
+    (host), measure_batch at 20, 160 and 300 with both device columns
+    (it raises on any mask or verdict that is not all valid, and runs
+    its self-checks first), measure_message_length.  Returns the
+    launches over the phase."""
+    from hotstuff_tpu_torch.offchain import bench
+    from hotstuff_tpu_torch.ops import bls381, field25519, field381
+    from hotstuff_tpu_torch.ops import kern
+
+    kern.reset_launches()
+    t0 = time.monotonic()
+    for name, check in (("field25519.mul_selfcheck",
+                         field25519.mul_selfcheck),
+                        ("field381.mul_selfcheck", field381.mul_selfcheck),
+                        ("bls381.selfcheck", bls381.selfcheck)):
+        t = time.monotonic()
+        check(device=dev)
+        print(f"offchain {name} on {dev}: exact, {time.monotonic() - t:.3f}"
+              f" s", flush=True)
+    t = time.monotonic()
+    bench.measure_single(iters=10)
+    print(f"offchain single: {time.monotonic() - t:.3f} s", flush=True)
+    t = time.monotonic()
+    rows = bench.measure_batch(sizes=OFFCHAIN_SIZES, device=dev)
+    print(f"offchain batch {OFFCHAIN_SIZES}: {time.monotonic() - t:.3f} s "
+          f"(keys, signatures, host columns included)", flush=True)
+    name = bench.device_name(dev)
+    for row in rows:
+        if row.get("device") != name or "eddsa_device_ms" not in row or \
+                "bls_aggregate_device_ms" not in row:
+            fail(f"offchain batch row {row}")
+    bench.measure_message_length(lengths=OFFCHAIN_LENGTHS, iters=20)
+    launches = dict(kern.LAUNCHES)
+    for k in OFFCHAIN_KERNELS:
+        if not launches[k]:
+            fail(f"kernel {k} was not launched by the off-chain suite")
+    print(f"offchain phase: {time.monotonic() - t0:.3f} s; kernel launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -2343,7 +2897,7 @@ def main() -> int:
 
     # Phase 11: the mesh.
     t0 = time.monotonic()
-    product_row, mesh_launches, tree = mesh_phase(dev, rng)
+    product_row, mesh_launches, tree, mesh_reqs = mesh_phase(dev, rng)
     for row in rows + bls_rows:
         row["launches_mesh"] = mesh_launches[row["name"]]
         if row["name"] == "field_mul":
@@ -2351,6 +2905,19 @@ def main() -> int:
     product_row["launches"] = product_row["launches_mesh"] = \
         mesh_launches["fq12_product"]
     print(f"mesh phase: {time.monotonic() - t0:.3f} s", flush=True)
+
+    # Phase 12: the cadence ring.
+    t0 = time.monotonic()
+    ring_launches = ring_phase(dev, mesh_reqs)
+    print(f"ring phase: {time.monotonic() - t0:.3f} s", flush=True)
+
+    # Phase 13: the off-chain suite.
+    t0 = time.monotonic()
+    offchain_launches = offchain_phase(dev)
+    print(f"offchain phase: {time.monotonic() - t0:.3f} s", flush=True)
+    for row in rows + bls_rows + [product_row]:
+        row["launches_ring"] = ring_launches.get(row["name"], 0)
+        row["launches_offchain"] = offchain_launches[row["name"]]
 
     print(json.dumps({"kernels": rows + bls_rows + [product_row]}),
           flush=True)

@@ -1,13 +1,13 @@
 """BLS12-381 pairing and BLS signatures in pure Python bigints: the
-port's copy of hotstuff_tpu/offchain/bls12381.py, cut to what the port
-uses.
+port's copy of hotstuff_tpu/offchain/bls12381.py.
 
 Roles in the port: the sidecar's host preparation for a BLS verify
 (decoding with the on-curve and subgroup tests, public-key and signature
 aggregation, hash-to-G2, the Miller loop's line values that
-ops/bls381.miller_lines records), the signer behind OP_BLS_SIGN, and the
+ops/bls381.miller_lines records), the signer behind OP_BLS_SIGN, the
 host reference (``verify_aggregate*``) that the tests and chip_smoke.py
-hold the card's verdicts to.
+hold the card's verdicts to, and the off-chain suite's BLS scheme
+(``key_gen``, ``sign``, ``verify``, ``pairing``; offchain/bench.py).
 
 Fq/Fq2/Fq12 tower (Fq12 as a flat degree-12 polynomial modulo
 w^12 - 2w^6 + 2), G1/G2 curves, optimal-ate pairing with the sextic
@@ -228,6 +228,17 @@ def _add(p1, p2, ops):
     return (nx, ny)
 
 
+def _mul(pt, k, ops):
+    result = None
+    addend = pt
+    while k:
+        if k & 1:
+            result = _add(result, addend, ops)
+        addend = _double(addend, ops)
+        k >>= 1
+    return result
+
+
 def g1_generator():
     return (G1_X, G1_Y)
 
@@ -254,6 +265,10 @@ def g2_add(p1, p2):
 
 def g2_mul(pt, k):
     return _jac_mul(pt, k % R, _fq2)
+
+
+def g2_neg(pt):
+    return None if pt is None else (pt[0], fq2_neg(pt[1]))
 
 
 def _jac_double(P, ops):
@@ -314,6 +329,14 @@ def _jac_mul(pt, k, ops):
     zinv = ops.inv(acc[2])
     zinv2 = ops.mul(zinv, zinv)
     return (ops.mul(acc[0], zinv2), ops.mul(acc[1], ops.mul(zinv2, zinv)))
+
+
+def g1_in_subgroup(pt) -> bool:
+    """Prime-order subgroup membership ([R]P == identity). The filecoin
+    bls-signatures crate the reference benches against enforces this on
+    every deserialize (off-chain-benchmarking/production/Cargo.toml:10);
+    aggregate verification over cofactor-component points is undefined."""
+    return pt is None or (g1_on_curve(pt) and _jac_mul(pt, R, _fq) is None)
 
 
 def g2_in_subgroup(pt) -> bool:
@@ -406,6 +429,12 @@ _FINAL_EXP = (Q**12 - 1) // R
 
 def final_exponentiate(f):
     return fq12_pow(f, _FINAL_EXP)
+
+
+def pairing(p_g1, q_g2):
+    """e(P in G1, Q in G2) -> Fq12 element of order dividing r."""
+    return final_exponentiate(
+        miller_loop(_twist(q_g2), _cast_g1_fq12(p_g1)))
 
 
 def multi_pairing(pairs):
@@ -583,6 +612,17 @@ def key_gen(seed: bytes | None = None):
 
 def sign(sk: int, msg: bytes):
     return g2_mul(hash_to_g2(msg), sk)
+
+
+def verify(pk, msg: bytes, sig) -> bool:
+    """e(g1, sig) == e(pk, H(m))  <=>  e(-g1, sig) * e(pk, H(m)) == 1."""
+    if sig is None or not g2_on_curve(sig):
+        return False
+    f = multi_pairing([
+        (g1_neg(g1_generator()), sig),
+        (pk, hash_to_g2(msg)),
+    ])
+    return f == FQ12_ONE
 
 
 def aggregate(sigs):

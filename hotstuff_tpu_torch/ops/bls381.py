@@ -222,6 +222,24 @@ def pairings_check(lines: torch.Tensor) -> torch.Tensor:
     return ok.reshape(lead)
 
 
+def selfcheck(device=None) -> None:
+    """The BLS path's exactness check at boot (the sidecar's BLS
+    warm-up, the off-chain bench): ``field381.mul_selfcheck``, then one
+    ``fq12_mul`` (the fq12_chain kernel on the card) on the JAX
+    package's seed-17 inputs against the host bigints' product.  Raises
+    AssertionError on any mismatch."""
+    dev = resolve(device)
+    F.mul_selfcheck(device=dev)
+    rng = np.random.default_rng(17)
+    x = tuple(int.from_bytes(rng.bytes(48), "little") % Q for _ in range(12))
+    y = tuple(int.from_bytes(rng.bytes(48), "little") % Q for _ in range(12))
+    dx = torch.from_numpy(host_fq12_to_mont_limbs(x))[None].to(dev)
+    dy = torch.from_numpy(host_fq12_to_mont_limbs(y))[None].to(dev)
+    got = F.from_mont(fq12_mul(dx, dy)).cpu().numpy()[0]
+    if tuple(F.from_limbs(r) for r in got) != host.fq12_mul(x, y):
+        raise AssertionError(f"fq12 multiply is not exact on {dev}")
+
+
 # ---------------------------------------------------------------------------
 # Aggregate verification (host preparation + device check)
 # ---------------------------------------------------------------------------

@@ -132,6 +132,32 @@ def sqr(a: torch.Tensor) -> torch.Tensor:
     return mul(a, a)
 
 
+def mul_selfcheck(batch: int = 256, seed: int = 0, device=None) -> None:
+    """Check the field multiply on ``device`` (K1 on the card, its plain
+    version on the CPU) exact for adversarial full-range weak limbs
+    (< 2^9, the first row all 511) against host bigints; raises
+    AssertionError on any mismatch.  Cheap (one launch); the off-chain
+    bench runs it before its sweep, so a wrong build fails at once
+    instead of giving wrong verdicts."""
+    from ..utils.device import resolve
+
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 512, (batch, NLIMBS))
+    b = rng.integers(0, 512, (batch, NLIMBS))
+    a[0, :] = 511
+    b[0, :] = 511
+    ta = torch.as_tensor(a, dtype=torch.int32, device=dev)
+    tb = torch.as_tensor(b, dtype=torch.int32, device=dev)
+    got = batch_from_limbs(canonical(mul(ta, tb)).cpu().numpy())
+    want = [(x * y) % P for x, y in zip(batch_from_limbs(a),
+                                        batch_from_limbs(b))]
+    if got != want:
+        bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+        raise AssertionError(f"field25519 multiply is not exact on {dev} "
+                             f"(first wrong row {bad})")
+
+
 # ---------------------------------------------------------------------------
 # Canonicalization and comparison
 # ---------------------------------------------------------------------------

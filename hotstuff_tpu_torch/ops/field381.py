@@ -325,6 +325,26 @@ def pow_const(x: torch.Tensor, exponent: int, window: int = 4) -> torch.Tensor:
     return pow_windowed(x, exponent, mont_mul, one, window)
 
 
+def mul_selfcheck(batch: int = 64, seed: int = 0, device=None) -> None:
+    """Check ``mont_mul`` on ``device`` exact against host bigints for
+    ``batch`` seeded products (the JAX package's inputs: random 62-bit
+    values to the 7th power mod q); raises AssertionError on any
+    mismatch."""
+    from ..utils.device import resolve
+
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    xs = [int(rng.integers(0, 2**62)) ** 7 % Q for _ in range(batch)]
+    ys = [int(rng.integers(0, 2**62)) ** 7 % Q for _ in range(batch)]
+    a = torch.from_numpy(np.stack([to_limbs(x * R % Q) for x in xs]))
+    b = torch.from_numpy(np.stack([to_limbs(y * R % Q) for y in ys]))
+    got = from_mont(mont_mul(a.to(dev), b.to(dev))).cpu().numpy()
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        if from_limbs(got[i]) != x * y % Q:
+            raise AssertionError(
+                f"field381 mont_mul mismatch at row {i} on {dev}")
+
+
 def inv(x: torch.Tensor) -> torch.Tensor:
     """Fermat inverse (0 -> 0), Montgomery form in and out: the fq_pow
     kernel on a CUDA tensor, its plain version on a CPU one.  Both first

@@ -127,13 +127,8 @@ def _launch_per_sig(mesh: Mesh, rows: list, present: list,
     return _finish_masks(mesh, outs)
 
 
-def verify_batch_sharded_pack(mesh: Mesh, prep: dict, *,
-                              max_subbatch: int = MAX_SUBBATCH):
-    """Pack stage of a sharded per-signature launch: the shard-aligned
-    padding (shard_shapes.shard_aligned_rows) and every shard's copies
-    happen here.  Returns ``dispatch() -> fetch() -> (N,) bool mask``."""
+def _per_sig_pack(mesh: Mesh, prep: dict, m: int, max_subbatch: int):
     n = prep["packed"].shape[0]
-    m = shard_aligned_rows(n, mesh.size, max_subbatch)
     rows, present = _pack_rows_present(mesh, prep, m)
 
     def dispatch():
@@ -141,6 +136,31 @@ def verify_batch_sharded_pack(mesh: Mesh, prep: dict, *,
         return _mask_fetch(mask, n)
 
     return dispatch
+
+
+def verify_batch_sharded_pack(mesh: Mesh, prep: dict, *,
+                              max_subbatch: int = MAX_SUBBATCH):
+    """Pack stage of a sharded per-signature launch: the shard-aligned
+    padding (shard_shapes.shard_aligned_rows) and every shard's copies
+    happen here.  Returns ``dispatch() -> fetch() -> (N,) bool mask``."""
+    m = shard_aligned_rows(prep["packed"].shape[0], mesh.size, max_subbatch)
+    return _per_sig_pack(mesh, prep, m, max_subbatch)
+
+
+def ring_slot_pack(mesh: Mesh, prep: dict, rows: int, *,
+                   max_subbatch: int = MAX_SUBBATCH):
+    """Pack stage of one cadence-ring slot: the sharded per-signature
+    launch of :func:`verify_batch_sharded_pack` (the same ``dispatch()
+    -> fetch()`` contract and masks) with the padded row count pinned to
+    ``rows``, the ring's shard-aligned tick shape, instead of the batch's
+    own bucket; the slack rows carry ``present`` = 0.  Each arm's tensors
+    are allocated here, fresh, so a late fetch of a dropped generation
+    reads its own buffers.  A batch larger than ``rows`` (the tick quota
+    caps the coalesce, so only defensively) takes its own shard-aligned
+    bucket."""
+    m = max(int(rows), shard_aligned_rows(prep["packed"].shape[0],
+                                          mesh.size, max_subbatch))
+    return _per_sig_pack(mesh, prep, m, max_subbatch)
 
 
 def verify_batch_sharded(mesh: Mesh, prep: dict, *, return_bad_total=False,

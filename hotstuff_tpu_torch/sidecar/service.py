@@ -35,6 +35,11 @@ and whole-backlog scan programs, TCs through the sharded multi-digest
 check; ``--warm-rlc-sharded`` runs and marks the mesh shapes before the
 socket binds.  ``--device cpu --mesh N`` builds N CPU shards.
 
+``--cadence`` (or ``HOTSTUFF_TPU_CADENCE``) runs the engine thread as
+the cadence ring (``ring.py``): a load-adaptive tick keeps up to k
+launches in flight, k trained in {2, 4, 8}; a wedge under the ring
+falls back to the staged loop.
+
 ``--host-crypto`` verifies on the host, with no device and no kernel
 build: Ed25519 with the copied ``crypto/ref_ed25519``, the BLS opcodes
 with the copied ``offchain/bls12381``.  ``--trace PATH`` appends the
@@ -45,7 +50,7 @@ same engine.
 Run:  python -m hotstuff_tpu_torch.sidecar --port 7100 [--device cuda|cpu]
           [--mesh N] [--warm-rlc-sharded] [--warm N] [--host-crypto]
           [--warm-bls] [--warm-bls-multi N] [--chaos] [--committee N]
-          [--client-rate TPS] [--trace PATH] [--tcp HOST:PORT]
+          [--client-rate TPS] [--trace PATH] [--tcp HOST:PORT] [--cadence]
 """
 
 from __future__ import annotations
@@ -224,7 +229,10 @@ class VerifyEngine:
     (sched.size_queue_caps); ``tracer`` receives the stage spans;
     ``guard`` supervises every device wait (None runs bare); ``chaos``
     is the OP_CHAOS state whose ``wedge`` knob reaches the launches;
-    ``rewarm_fn`` re-runs the boot's warm-up during a reboot."""
+    ``rewarm_fn`` re-runs the boot's warm-up during a reboot;
+    ``cadence`` runs the engine thread as the cadence ring first
+    (ring.CadenceRing), and ``ring_factory(engine)`` builds the ring
+    instead (tests inject rings with virtual clocks)."""
 
     # Bounded FIFO of (msg, pk, sig) -> verdict.
     VERDICT_CACHE_CAP = 64 * 1024
@@ -239,7 +247,8 @@ class VerifyEngine:
                  committee: int | None = None,
                  client_rate: int | None = None,
                  tracer: Tracer | None = None, guard=None, chaos=None,
-                 rewarm_fn=None):
+                 rewarm_fn=None, cadence: bool = False,
+                 ring_factory=None):
         self._use_host = use_host
         if use_host:
             mesh = None
@@ -287,7 +296,17 @@ class VerifyEngine:
             max_workers=1, thread_name_prefix="verify-pack")
         self._inflight_n = 0  # launches executing on the device
         self._stopped = threading.Event()
-        self._thread = threading.Thread(target=self._run_staged,
+        # The cadence ring runs on the engine thread first; its wedge
+        # fallback (or an engine without one) lands in the staged loop.
+        if ring_factory is not None:
+            self._ring = ring_factory(self)
+        elif cadence:
+            from .ring import CadenceRing
+
+            self._ring = CadenceRing(self)
+        else:
+            self._ring = None
+        self._thread = threading.Thread(target=self._run,
                                         daemon=True, name="verify-engine")
         self._thread.start()
 
@@ -380,8 +399,8 @@ class VerifyEngine:
 
     def stats_snapshot(self) -> dict:
         """The OP_STATS reply body: the reference's sections (the XLA
-        ``compile`` tracker and the cadence ring's section excepted),
-        plus the device and the kernel launch counts."""
+        ``compile`` tracker excepted), plus the device and the kernel
+        launch counts."""
         from ..ops import kern
 
         snap = self._sched.stats.snapshot()
@@ -406,6 +425,8 @@ class VerifyEngine:
             g["device_ok"] = self._device_ok
             g["rebooting"] = self._rebooting
             snap["guard"] = g
+        if self._ring is not None:
+            snap["cadence"] = self._ring.snapshot()
         snap["device"] = "host" if self._use_host else str(
             self._mesh or self.device)
         snap["kernels"] = dict(kern.LAUNCHES)
@@ -435,6 +456,25 @@ class VerifyEngine:
 
     # -- engine thread -------------------------------------------------------
 
+    def _run(self):
+        """Engine thread: the cadence ring first when there is one (it
+        returns on stop, or on a wedge fallback with every flight
+        answered), then the staged loop."""
+        ring = self._ring
+        if ring is not None:
+            ring.run()
+            if self._stopped.is_set():
+                self._close_queues()
+                return
+        self._run_staged()
+
+    def _close_queues(self):
+        """Shutdown: requests still queued are answered OP_BUSY."""
+        self._pack_pool.shutdown(wait=False)
+        while (launch := self._sched.next_launch(block=False)) is not None:
+            for p in launch.items:
+                p.reply_fn(None)
+
     def _run_staged(self):
         packing = collections.deque()   # (batch, Future[dispatch_fn])
         inflight = collections.deque()  # (batch, fetch_fn, dispatched_at,
@@ -460,12 +500,7 @@ class VerifyEngine:
                         (item,) = launch.items
                         while inflight:
                             self._drain_one(inflight)
-                        tags = _ctx_kw(item.request) \
-                            if self._tracer.enabled else {}
-                        with self._tracer.span(
-                                "device", kind="bls",
-                                rid=item.request.request_id, **tags):
-                            self._execute_bls(item)
+                        self._run_bls(item)
                         continue
                     batch = launch.items
                     packing.append(
@@ -482,16 +517,19 @@ class VerifyEngine:
                     packing[0][1].exception(timeout=0.25)
                 except cfut.TimeoutError:
                     pass
-        # Shutdown: every request taken from the queues gets its reply,
-        # and requests still queued are answered OP_BUSY.
+        # Shutdown: every request taken from the queues gets its reply.
         while packing:
             self._dispatch_one(packing, inflight)
         while inflight:
             self._drain_one(inflight)
-        self._pack_pool.shutdown(wait=False)
-        while (launch := self._sched.next_launch(block=False)) is not None:
-            for p in launch.items:
-                p.reply_fn(None)
+        self._close_queues()
+
+    def _run_bls(self, item):
+        """One BLS launch, under its ``device`` span."""
+        tags = _ctx_kw(item.request) if self._tracer.enabled else {}
+        with self._tracer.span("device", kind="bls",
+                               rid=item.request.request_id, **tags):
+            self._execute_bls(item)
 
     def _trace_queue_waits(self, launch):
         """One ``queue`` span per launched request: admission -> launch."""
@@ -888,7 +926,11 @@ class VerifyEngine:
         chunked whole-backlog launch), ladder launches slice at the
         registry's ladder cap.  Each launch's per-shard buckets (one per
         slice) enter the OP_STATS ``mesh`` histogram, counted once per
-        launch; scan launches enter ``scan`` with their chunk count."""
+        launch; scan launches enter ``scan`` with their chunk count.
+        While the cadence ring is engaged, every ladder slice is armed at
+        the ring's fixed shard-aligned row count (``ring_slot_pack``: the
+        ladder cap's rows, a warmed shape, the slack rows dead) instead
+        of its own bucket."""
         from ..crypto.eddsa import prepare_batch
         from ..parallel import sharded_verify as shv
 
@@ -910,12 +952,20 @@ class VerifyEngine:
                     mesh, prepare_batch(msgs, pks, sigs), rows=rows)]
         # The marked ladder cap, never the scan-raised launch cap.
         step = self._shapes.ladder_cap()
+        ring = self._ring
+        ring_rows = None
+        if ring is not None and ring.enabled:
+            ring_rows = shv.shard_aligned_rows(step, mesh.size, MAX_SUBBATCH)
         buckets, out = [], []
         for i in range(0, len(msgs), step):
             sl = slice(i, i + step)
+            prep = prepare_batch(msgs[sl], pks[sl], sigs[sl])
+            if ring_rows is not None:
+                buckets.append(self._shapes.shard_bucket_of(ring_rows))
+                out.append(shv.ring_slot_pack(mesh, prep, ring_rows))
+                continue
             buckets.append(self._shapes.shard_bucket_of(len(msgs[sl])))
-            out.append(shv.verify_batch_sharded_pack(
-                mesh, prepare_batch(msgs[sl], pks[sl], sigs[sl])))
+            out.append(shv.verify_batch_sharded_pack(mesh, prep))
         stats.note_mesh_launch(buckets)
         return out
 
@@ -1227,7 +1277,7 @@ def _warm_record(msg: bytes):
     return ref.generate_keypair(sk)[1], ref.sign(sk, msg)
 
 
-def warmup(engine: VerifyEngine, warm_max: int = MAX_SUBBATCH) -> None:
+def warmup(engine: VerifyEngine, warm_max: int = MAX_SUBBATCH) -> dict:
     """Build the kernels, check the toolchain with the probe kernel and
     place the comb table on the device before the socket binds, by
     verifying one small batch through each program (the per-signature
@@ -1236,7 +1286,13 @@ def warmup(engine: VerifyEngine, warm_max: int = MAX_SUBBATCH) -> None:
     build.  On a mesh the probe runs on every shard, and the
     per-signature sharded program runs at every global size 8, 16, ...
     ``warm_max``, each marked in the registry (the reference's
-    ``_warmup``).  The reboot's re-warm runs it again."""
+    ``_warmup``).  The reboot's re-warm runs it again.
+
+    Returns the wall in seconds of a warm call of each shape,
+    ``{"per_sig:N" | "rlc:N" | "per_sig_sharded:N": wall_s}``, the
+    evidence ``serve()`` seeds the cadence ring's depth with: the first
+    call, which includes the kernel build, is run again and only the
+    repeat is timed."""
     import torch
 
     from ..crypto import eddsa
@@ -1253,25 +1309,34 @@ def warmup(engine: VerifyEngine, warm_max: int = MAX_SUBBATCH) -> None:
 
     msg = b"\x01" * 32
     pk, sig = _warm_record(msg)
+    walls = {}
+
+    def timed(key, call, repeat=False):
+        for _ in range(2 if repeat else 1):
+            t0 = monotonic()
+            ok = call()
+            walls[key] = monotonic() - t0
+            if not all(ok):
+                raise RuntimeError(f"warm-up verify {key} returned false")
+
     if mesh is not None:
         n = 8
         while n <= warm_max:
-            t0 = monotonic()
-            if not engine._verify([msg] * n, [pk] * n, [sig] * n).all():
-                raise RuntimeError(f"mesh warm-up per-signature verify "
-                                   f"returned false at N={n}")
+            timed(f"per_sig_sharded:{n}",
+                  lambda: engine._verify([msg] * n, [pk] * n, [sig] * n),
+                  repeat=n == 8)
             engine._shapes.mark_bucket(n)
-            log.info("mesh warm-up N=%d done in %.1fs", n, monotonic() - t0)
+            log.info("mesh warm-up N=%d done in %.1fs", n,
+                     walls[f"per_sig_sharded:{n}"])
             n *= 2
-        return
+        return walls
     n = vsched.RLC_MIN_LAUNCH
-    if not engine._verify([msg], [pk], [sig]).all():
-        raise RuntimeError("warm-up per-signature verify returned false")
+    timed("per_sig:1", lambda: engine._verify([msg], [pk], [sig]),
+          repeat=True)
     with engine.on_lead():
-        ok = eddsa.verify_batch_rlc([msg] * n, [pk] * n, [sig] * n,
-                                    device=engine.device)
-    if not all(ok):
-        raise RuntimeError("warm-up RLC verify returned false")
+        timed(f"rlc:{n}", lambda: eddsa.verify_batch_rlc(
+            [msg] * n, [pk] * n, [sig] * n, device=engine.device))
+    return walls
 
 
 def warmup_mesh_scan(engine: VerifyEngine, warm_max: int = MAX_SUBBATCH,
@@ -1357,14 +1422,20 @@ def warmup_bls(engine: VerifyEngine, n_votes: int = 3,
                multi: bool = False) -> None:
     """One BLS aggregate verify of n votes on the engine's device before
     the socket binds (``--warm-bls``: the common-message QC check;
-    ``--warm-bls-multi N``: the N-vote distinct-digest TC check).  It
-    builds the kernels and leaves the Frobenius tables and exponent
-    digits on the device; no shape gates the card path, every shape
-    runs the same kernels.  A mesh engine checks the TC sharded."""
+    ``--warm-bls-multi N``: the N-vote distinct-digest TC check), after
+    ``bls381.selfcheck`` (the BLS field and Fq12 products exact against
+    the host bigints; it raises on a mismatch, so a wrong build never
+    serves).  It builds the kernels and leaves the Frobenius tables and
+    exponent digits on the device; no shape gates the card path, every
+    shape runs the same kernels.  A mesh engine checks the TC
+    sharded."""
     from ..offchain import bls12381 as bls
     from ..ops import bls381 as dbls
 
     t0 = monotonic()
+    with engine.on_lead():
+        dbls.selfcheck(device=engine.device)
+    log.info("BLS self-check exact on %s", engine.device)
     keys = [bls.key_gen(bytes([i + 1]) * 32) for i in range(n_votes)]
     pks = [pk for _, pk in keys]
     if multi:
@@ -1399,14 +1470,20 @@ def serve(host: str = "127.0.0.1", port: int = 7100, device=None,
           client_rate: int | None = None, trace_path: str | None = None,
           chaos: bool = False, tcp: str | None = None,
           mesh_devices: int | None = None, warm_max: int = MAX_SUBBATCH,
-          warm_rlc_sharded: bool = False):
+          warm_rlc_sharded: bool = False, cadence: bool | None = None):
     """Warm up (a ``use_host`` engine has nothing to warm), then run the
     sidecar until interrupted; returns the closed server.  Every boot
     gets a launch guard; ``chaos`` enables OP_CHAOS, ``tcp``
     ("HOST:PORT") binds a second listener on the same engine;
     ``mesh_devices`` N > 1 shards over a mesh (``warm_max`` bounds its
     warmed shapes, ``warm_rlc_sharded`` adds the sharded RLC and scan
-    legs)."""
+    legs); ``cadence`` runs the cadence ring (None: the
+    ``HOTSTUFF_TPU_CADENCE`` environment decides), its depth trainer
+    seeded with the warm-up's walls."""
+    from .ring import cadence_enabled
+
+    if cadence is None:
+        cadence = cadence_enabled()
     tracer = None
     if trace_path:
         tracer = Tracer(trace_path)
@@ -1419,28 +1496,34 @@ def serve(host: str = "127.0.0.1", port: int = 7100, device=None,
     engine = VerifyEngine(device=device, mesh_devices=mesh_devices,
                           use_host=use_host, committee=committee,
                           client_rate=client_rate, tracer=tracer,
-                          chaos=chaos_state)
+                          chaos=chaos_state, cadence=cadence)
     guard = None
     servers = []
     try:
         t0 = monotonic()
         if not use_host:
             def warm():
-                warmup(engine, warm_max)
+                walls = warmup(engine, warm_max)
                 if warm_rlc_sharded:
                     warmup_rlc_sharded(engine, warm_max)
                 if warm_bls:
                     warmup_bls(engine)
                 if warm_bls_multi:
                     warmup_bls(engine, warm_bls_multi, multi=True)
+                return walls
 
-            warm()
+            walls = warm()
+            if cadence:
+                engine._ring.depth.seed(walls)
             # The reboot re-runs the legs this boot ran, against the
             # loaded kernel library: no nvcc, only the device tables.
             engine._rewarm_fn = warm
         log.info("warm-up on %s done in %.1fs",
                  "the host" if use_host else engine._mesh or engine.device,
                  monotonic() - t0)
+        if cadence:
+            log.info("cadence ring enabled: depth trainer %s",
+                     engine._ring.depth.snapshot())
         # Built after the warm-up, whose outcome sets the deadline class
         # (the kernel library is loaded now); host boots are warm.
         guard = LaunchGuard(deadlines=LaunchDeadlines(warm_boot=True)
@@ -1484,16 +1567,6 @@ def serve(host: str = "127.0.0.1", port: int = 7100, device=None,
         if tracer is not None:
             tracer.close()
     return server
-
-
-# Flags of the reference's CLI whose machinery the port has not ported:
-# each exits with the ROADMAP item that ports it, never ignored.
-NOT_PORTED = {
-    "cadence": "the cadence ring (--cadence, sidecar/ring.py) is ROADMAP "
-               "Queue A item 3, the rest of it: the ring runs on "
-               "Scheduler.next_tick and the guard's tick: deadlines, "
-               "both ported",
-}
 
 
 def main(argv=None):
@@ -1549,12 +1622,14 @@ def main(argv=None):
                          "through the sharded combined check and bulk "
                          "backlogs drain in one launch"
                          % vsched.RLC_MIN_LAUNCH)
-    ap.add_argument("--cadence", action="store_true",
-                    help="not ported: " + NOT_PORTED["cadence"])
+    ap.add_argument("--cadence", action="store_true", default=None,
+                    help="run the engine as the cadence ring (a "
+                         "load-adaptive tick, up to k launches in flight, "
+                         "k trained in {2, 4, 8}); default: the "
+                         "HOTSTUFF_TPU_CADENCE environment, else the "
+                         "staged loop")
     ap.add_argument("-v", "--verbose", action="count", default=0)
     args = ap.parse_args(argv)
-    if args.cadence:
-        ap.error(f"--cadence is not ported: {NOT_PORTED['cadence']}")
     if args.mesh > 1 and args.device == "cuda":
         import torch
 
@@ -1575,7 +1650,8 @@ def main(argv=None):
           committee=args.committee or None,
           client_rate=args.client_rate or None, trace_path=args.trace,
           chaos=args.chaos, tcp=args.tcp, mesh_devices=args.mesh or None,
-          warm_max=args.warm, warm_rlc_sharded=args.warm_rlc_sharded)
+          warm_max=args.warm, warm_rlc_sharded=args.warm_rlc_sharded,
+          cadence=args.cadence)
 
 
 if __name__ == "__main__":

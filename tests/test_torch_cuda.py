@@ -467,3 +467,73 @@ def test_two_shard_mesh_on_card_rlc_and_bls(card):
             0: {"miller_accumulate": 1, "fq12_product": 1},
             1: {"miller_accumulate": 1, "fq12_product": 1},
             "lead": {"final_exp": 1}}
+
+
+def test_cadence_ring_on_card_qc_of_67(card):
+    """A ring engine on the card (depth pinned at 2, a launch guard): a
+    QC of 67 with one forged vote gets ref_ed25519's mask, its launches
+    run under the ``tick:`` class and the kernels of the RLC program and
+    its bisection ran."""
+    import threading
+
+    from hotstuff_tpu_torch.sidecar import protocol as proto
+    from hotstuff_tpu_torch.sidecar import service
+    from hotstuff_tpu_torch.sidecar.guard import LaunchDeadlines, LaunchGuard
+    from hotstuff_tpu_torch.sidecar.ring import CadenceRing, RingDepth
+
+    keys = [ref.generate_keypair(bytes([74, i]) * 16) for i in range(67)]
+    msg = b"\x75" * 32
+    sigs = [ref.sign(sk, msg) for sk, _ in keys]
+    sigs[9] = ref.sign(keys[9][0], b"forged")
+    pks = [pk for _, pk in keys]
+    want = [ref.verify(pk, msg, s) for pk, s in zip(pks, sigs)]
+    engine = service.VerifyEngine(
+        device=card, ring_factory=lambda e: CadenceRing(
+            e, depth=RingDepth(pinned=2)))
+    guard = LaunchGuard(deadlines=LaunchDeadlines(warm_boot=True))
+    try:
+        service.warmup(engine)
+        engine._guard = guard
+        got, done = [], threading.Event()
+        kern.reset_launches()
+        assert engine.submit(proto.VerifyRequest(1, [msg] * 67, pks, sigs),
+                             lambda m: (got.append(m), done.set()))
+        assert done.wait(120)
+        assert got == [want]
+        assert kern.LAUNCHES["rlc_scalars"] >= 1
+        assert kern.LAUNCHES["point_ladder"] >= 1
+        cad = engine.stats_snapshot()["cadence"]
+        assert cad["enabled"] and cad["dispatch_ticks"] >= 1
+        assert any(k.startswith("tick:")
+                   for k in guard.snapshot()["deadlines"])
+    finally:
+        engine.stop()
+        guard.close()
+
+
+@pytest.mark.parametrize("check", ["field25519", "field381", "bls381"])
+def test_selfchecks_on_card(card, check):
+    from hotstuff_tpu_torch.ops import field25519
+
+    fn = {"field25519": field25519.mul_selfcheck,
+          "field381": F381.mul_selfcheck, "bls381": B.selfcheck}[check]
+    before = dict(kern.LAUNCHES)
+    fn(device=card)
+    torch.cuda.synchronize()
+    launched = {k for k, v in kern.LAUNCHES.items() if v != before[k]}
+    assert launched == {"field25519": {"field_mul"}, "field381": set(),
+                        "bls381": {"fq12_mul"}}[check]
+
+
+def test_offchain_verify_batch_device_at_300(card):
+    from hotstuff_tpu_torch.offchain import eddsa as off
+
+    keys = [off.key_gen(bytes([76, i % 256, i // 256, 0]) * 8)
+            for i in range(300)]
+    msgs = [bytes([77, i % 256]) * 16 for i in range(300)]
+    sigs = [off.sign(sk, m) for (sk, _), m in zip(keys, msgs)]
+    sigs[123] = off.sign(keys[123][0], b"forged")
+    pks = [pk for _, pk in keys]
+    assert off.verify_batch_device(msgs, pks, sigs, device=card) == \
+        off.verify_batch_host(msgs, pks, sigs)
+    assert sum(off.verify_batch_device(msgs, pks, sigs)) == 299

@@ -69,7 +69,10 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "sidecar.sched.surge", "sidecar.sched.shapes",
                  "sidecar.sched.stats", "parallel.mesh",
                  "parallel.shard_shapes", "parallel.sharded_verify",
-                 "parallel.sharded_bls", "__graft_entry__"):
+                 "parallel.sharded_bls", "__graft_entry__",
+                 "sidecar.ring", "offchain.eddsa", "offchain.bench",
+                 "offchain.secp256k1", "offchain.ecdsa", "offchain.schnorr",
+                 "offchain.__main__"):
         assert f"hotstuff_tpu_torch.{name}" in mods
     proc = _run(_CHECK.format(repo=REPO, mods=mods))
     assert proc.returncode == 0, proc.stderr
@@ -86,6 +89,8 @@ from hotstuff_tpu_torch.ops import bls381
 from hotstuff_tpu_torch.sidecar.service import VerifyEngine
 from hotstuff_tpu_torch.parallel.mesh import make_mesh, virtual_mesh
 from hotstuff_tpu_torch import __graft_entry__ as graft
+from hotstuff_tpu_torch.offchain import bench, eddsa as off_eddsa
+from hotstuff_tpu_torch.ops import field25519, field381
 assert not torch.cuda.is_available()
 sk, pk = ref.generate_keypair(b"\x07" * 32)
 sig = ref.sign(sk, b"m")
@@ -100,6 +105,12 @@ calls = [
     lambda: VerifyEngine(),
     lambda: virtual_mesh(2, "cuda:0"),
     lambda: graft.entry(),
+    lambda: VerifyEngine(cadence=True),
+    lambda: off_eddsa.verify_batch_device([b"m"], [pk], [sig]),
+    lambda: field25519.mul_selfcheck(),
+    lambda: field381.mul_selfcheck(),
+    lambda: bls381.selfcheck(),
+    lambda: bench.measure_batch(sizes=(1,)),
 ]
 for call in calls:
     try:

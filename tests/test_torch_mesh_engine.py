@@ -15,7 +15,8 @@ reference's engine logic:
 * ``python -m hotstuff_tpu_torch.sidecar --device cpu --mesh 4
   --warm-rlc-sharded`` boots and answers a QC; ``--mesh 4`` without
   ``--device cpu`` exits on a host with no card with the reference's
-  device-count error; ``--cadence`` still exits naming its item.
+  device-count error; ``--cadence`` without ``--device cpu`` raises
+  the no-card error there.
 """
 
 from __future__ import annotations
@@ -246,12 +247,24 @@ def test_mesh_without_cards_exits_with_the_device_count_error():
     assert "need 4 devices, have 0" in proc.stderr
 
 
-def test_cadence_still_exits_naming_its_item(capsys):
-    with pytest.raises(SystemExit) as exc:
-        service.main(["--cadence"])
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP Queue A item 3" in err
+def test_cadence_still_exits_naming_its_item():
+    """``--cadence`` is served since the cadence ring was ported (it no
+    longer exits naming a ROADMAP item); like every device boot, a
+    process on a host with no card exits non-zero with the no-card
+    error."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "hotstuff_tpu_torch.sidecar", "--cadence",
+         "--mesh", "4"], cwd=REPO, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "need 4 devices, have 0" in proc.stderr
+    proc = subprocess.run(
+        [sys.executable, "-m", "hotstuff_tpu_torch.sidecar", "--cadence"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr
+    assert "not ported" not in proc.stderr
 
 
 def test_engine_on_a_mesh_needs_its_cards():

@@ -184,7 +184,7 @@ def test_warm_bls_flags_reach_the_boot(monkeypatch):
     rest = {"use_host": False, "committee": None, "client_rate": None,
             "trace_path": None, "chaos": False, "tcp": None,
             "mesh_devices": None, "warm_max": 1024,
-            "warm_rlc_sharded": False}
+            "warm_rlc_sharded": False, "cadence": None}
     assert calls == [
         {"device": "cpu", "warm_bls": True, "warm_bls_multi": 5, **rest},
         {"device": "cpu", "warm_bls": False, "warm_bls_multi": 0, **rest}]
