@@ -123,15 +123,39 @@ Phases, in order; any failure ends the run with a non-zero exit:
      bls381.selfcheck), measure_single for EdDSA, ECDSA, Schnorr and
      BLS, measure_batch at 20, 160 and 300 with both device columns
      (every mask and verdict true, each row naming the card), and
-     measure_message_length at three lengths.
+     measure_message_length at three lengths;
+ 14. the local benchmark harness (hotstuff_tpu_torch/harness): native/
+     built once (the harness's own compile step where cmake is on the
+     PATH, else scripts/native_build.sh), then LocalBench at the
+     harness's local settings (4 nodes, 100,000 tx/s of 512 B, batches
+     of 15,000 B, a 1,000 ms timeout, --tpu-sidecar --warm-rlc; a 20 s
+     window, the default's 30 cut) boots the port's sidecar on the card
+     and a committee of the unchanged C++ nodes with their clients on
+     free ports, for Ed25519 and for BLS, in build/chip/harness/ (its
+     sweep reaches only processes running there).  Each leg must commit
+     with finite consensus and end-to-end latency; its OP_STATS paths
+     must be device routes only, with no request shed (queue_full, the
+     guard's busy replies) and the guard's device up; its sidecar log
+     must show no host route; every replica must have connected, kept
+     its breaker closed and logged no host route; the sidecar must have
+     admitted at least the replicas' certificate checks and answered
+     each within half the replicas' deadline; the committee must launch
+     the scheme's kernels.  In the Ed25519 leg a forged batch of 67
+     votes sent mid-run must get the host mask; the BLS leg's log must
+     show the boot self-check exact.  One JSON line per leg: TPS and
+     latency, routes, launches per kernel over the sampled window,
+     queue waits, the trace's sidecar breakdown and critical path, the
+     card.
 
 The line before the last is a JSON object listing the kernels with
 their launches on the main paths (over the requests, the probe's at
 boot, and one request of each kind; the Fq12 kernels over the BLS
 requests; fq12_product over phase 11's; ``launches_mesh`` over phase
 11's requests, ``launches_ring`` over phase 12's, ``launches_offchain``
-over phase 13; the probe's library time is torch.add's), times and
-bounds;
+over phase 13, ``launches_harness`` over phase 14's sampled windows
+(the committees' and the forged batch's), the probe's at the sidecars'
+boots; the probe's library time is
+torch.add's), times and bounds;
 the last line is {"ok": true, "device":
 {...}}.  Without a CUDA device, or without the rest of the repository
 beside it, the script exits non-zero and prints no result.
@@ -2802,6 +2826,415 @@ def offchain_phase(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: a committee of the unchanged C++ nodes on the card
+# ---------------------------------------------------------------------------
+
+# The harness's local settings (``python -m hotstuff_tpu_torch.harness
+# local`` with its defaults and --tpu-sidecar --warm-rlc), the run window
+# cut from 30 s to 20 s.
+HARNESS_LOCAL = {"nodes": 4, "rate": 100_000, "tx_size": 512,
+                 "batch_size": 15_000, "batch_delay": 100, "timeout": 1_000,
+                 "duration": 20}
+# The kernels each leg's committee must launch: a QC of 3 votes is below
+# RLC_MIN_LAUNCH and runs the per-signature program; a BLS QC is one
+# pairing check.
+HARNESS_KERNELS = {"ed25519": ("field_mul", "point_ladder", "decompress",
+                               "point_multiples"),
+                   "bls": ("miller_accumulate", "final_exp")}
+# OP_STATS paths of the Ed25519 device programs (the host's is "host").
+DEVICE_PATHS = ("per_sig", "rlc", "rlc_bisect")
+# Sidecar log lines that mean a request was answered off the card.
+HOST_ROUTE_MARKS = ("(host crypto)", "WEDGED", "degradation ladder",
+                    "Traceback", "failed")
+
+
+# Replica log lines that mean a certificate was verified, or a vote
+# signed, off the sidecar (native/src/crypto/sidecar_client.cpp,
+# crypto.cpp, consensus/core.cpp; the replicas log at INFO).
+NODE_HOST_MARKS = ("circuit breaker OPEN", "lost connection to verify sidecar",
+                   "in-flight sidecar request(s)",
+                   "async verify transport failure",
+                   "BLS signing unavailable", "protocol mismatch from sidecar")
+# A replica's deadline for one sidecar request, in ms (kRecvTimeoutMs and
+# kBlsRecvTimeoutMs, native/src/crypto/sidecar_client.hpp).  An Ed25519
+# request answered later is verified on the host with no line at INFO.
+NODE_DEADLINE_MS = {"ed25519": 1_000, "bls": 60_000}
+# OP_STATS paths of the BLS requests (each runs on the card in a device
+# sidecar; the sidecar log and the guard show a host answer).
+BLS_PATHS = ("bls_votes", "bls_multi", "bls_sign", "bls_agg")
+
+
+def free_port_block(n: int) -> int:
+    """The first of ``n`` consecutive loopback ports free now, drawn at
+    random below Linux's ephemeral range (32768-60999): a committee on
+    the harness's fixed ports would meet another checkout's on the same
+    machine."""
+    import random
+    import socket
+
+    draw = random.Random(os.getpid() ^ time.time_ns())
+    for _ in range(100):
+        base = draw.randrange(20_000, 32_000 - n)
+        socks = []
+        try:
+            for port in range(base, base + n):
+                socks.append(socket.socket())
+                socks[-1].bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    fail(f"no {n} consecutive free loopback ports")
+
+
+def native_build(work: str) -> None:
+    """Build native/ (the C++ node and client) once, from ``work``, the
+    legs' directory: with the harness's own compile step (cmake, ninja)
+    where cmake is on the PATH, so that each leg's compile step, run from
+    the same path, finds nothing to do; else with scripts/native_build.sh,
+    whose binaries the compile step accepts."""
+    import shutil
+
+    from hotstuff_tpu_torch.harness.commands import CommandMaker
+
+    if shutil.which("cmake"):
+        how = "the harness's compile step (cmake, ninja)"
+        argv = ["/bin/sh", "-c", CommandMaker.compile()]
+    else:
+        how = "scripts/native_build.sh"
+        argv = [os.path.join(REPO, "scripts", "native_build.sh"), "none"]
+    t0 = time.monotonic()
+    proc = subprocess.run(argv, cwd=work, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        fail(f"{how} failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    print(f"harness: native/ built by {how} in "
+          f"{time.monotonic() - t0:.3f} s", flush=True)
+
+
+def forged_batch():
+    """A QC of 67 votes by 67 keys with one tampered vote (signed over
+    another digest), and its host mask."""
+    import hashlib
+
+    from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
+
+    def seed(tag: str, i: int) -> bytes:
+        return hashlib.sha256(f"chip-smoke/harness/{tag}/{i}".encode()) \
+            .digest()
+
+    keys = [ref.generate_keypair(seed("replica", i)) for i in range(67)]
+    digest = seed("block", 0)
+    msgs = [digest] * 67
+    pks = [pk for _, pk in keys]
+    sigs = [ref.sign(sk, digest) for sk, _ in keys]
+    sigs[33] = ref.sign(keys[33][0], seed("forged", 0))
+    return (msgs, pks, sigs), [ref.verify(pk, m, s)
+                               for m, pk, s in zip(msgs, pks, sigs)]
+
+
+def node_routes(scheme: str, node_logs: dict, spans: list) -> tuple:
+    """Where the committee's certificates were verified, from the
+    replicas' side: each replica connected to the sidecar and logged no
+    host route, its breaker stayed closed in every METRICS line; the
+    sidecar shed no request, admitted at least as many as the replicas'
+    verify_submit traces, and answered each within half the replicas'
+    deadline (its spans: admit to reply, or to the end of a BLS
+    request's device span).  A request still open at teardown is a fault
+    only if the sidecar outlived its deadline.  Returns (facts, faults)."""
+    from collections import defaultdict
+
+    from hotstuff_tpu_torch.obs.sampler import parse_node_metrics
+
+    faults, submits = [], 0
+    for name, text in sorted(node_logs.items()):
+        if "connected to verify sidecar" not in text:
+            faults.append(f"{name} never connected to the sidecar")
+        faults += [f"{name} logs {m!r}" for m in NODE_HOST_MARKS if m in text]
+        breakers = {r["metrics"]["breaker"]
+                    for r in parse_node_metrics(text, name)}
+        if breakers != {"closed"}:
+            faults.append(f"{name}: breaker states {sorted(breakers)}")
+        submits += text.count("TRACE stage=verify_submit ")
+    admitted, done, shed = defaultdict(list), defaultdict(list), 0
+    for r in spans:
+        key = (r.get("rid"), r.get("ctx"))
+        if r.get("stage") == "admit":
+            if r.get("ok") is False:
+                shed += 1
+            else:
+                admitted[key].append(r["t"])
+        elif r.get("stage") == "reply" or (r.get("stage") == "device"
+                                          and "rid" in r):
+            done[key].append(r["t"] + r.get("dur_ms", 0.0) / 1e3)
+    deadline_s = NODE_DEADLINE_MS[scheme] / 1e3
+    last = max((t for ts in done.values() for t in ts), default=0.0)
+    waits, open_at_end, expired = [], 0, 0
+    for key, starts in admitted.items():
+        starts, ends = sorted(starts), sorted(done.get(key, ()))
+        waits += [e - a for a, e in zip(starts, ends)]
+        for a in starts[len(ends):]:
+            open_at_end += 1
+            expired += last - a > deadline_s
+    requests = sum(len(v) for v in admitted.values())
+    slowest_ms = max(waits, default=0.0) * 1e3
+    facts = {"replica_verify_submits": submits, "sidecar_requests": requests,
+             "shed": shed, "open_at_teardown": open_at_end,
+             "slowest_request_ms": round(slowest_ms, 3)}
+    if shed:
+        faults.append(f"{shed} request(s) shed: answered OP_BUSY, the "
+                      "replica verifies on the host")
+    if expired:
+        faults.append(f"{expired} request(s) unanswered past the replicas' "
+                      f"{NODE_DEADLINE_MS[scheme]} ms deadline")
+    if requests < submits:
+        faults.append(f"the sidecar admitted {requests} requests, the "
+                      f"replicas submitted {submits} certificate checks")
+    if slowest_ms >= NODE_DEADLINE_MS[scheme] / 2:
+        faults.append(f"a request took {slowest_ms:.3f} ms, past half the "
+                      f"replicas' {NODE_DEADLINE_MS[scheme]} ms deadline")
+    return facts, faults
+
+
+def harness_leg(scheme: str, card: str, work: str) -> dict:
+    """One leg of phase 14: LocalBench (hotstuff_tpu_torch/harness) boots
+    the port's sidecar on the card, a committee of HARNESS_LOCAL["nodes"]
+    C++ nodes and their clients on free ports, runs the window and parses
+    the logs, in ``work`` (its native/ is the repository's); the leg's
+    logs stay in ``work``/logs-<scheme>/.  Launches are counted over the
+    sampled window, from the harness's first OP_STATS sample (logs/
+    metrics.jsonl, taken once the committee has run 2 x timeout) to its
+    last; in the Ed25519 leg they include the forged batch that a client
+    sends half-way through.  Returns those launches (the probe's at
+    boot)."""
+    from hotstuff_tpu_torch.harness.config import (
+        BenchParameters, NodeParameters)
+    from hotstuff_tpu_torch.harness.local import LocalBench
+    from hotstuff_tpu_torch.harness.utils import BenchError, PathMaker
+    from hotstuff_tpu_torch.obs import build_run_trace, parse_spans
+    from hotstuff_tpu_torch.obs.sampler import read_samples, split_samples
+    from hotstuff_tpu_torch.sidecar.client import SidecarClient
+
+    import glob
+    import math
+    import shutil
+
+    cfg = HARNESS_LOCAL
+    n = cfg["nodes"]
+    base = free_port_block(3 * n + 1)
+
+    class Bench(LocalBench):
+        BASE_PORT = base                 # 3 ports a replica
+        SIDECAR_PORT = base + 3 * n
+
+    port = Bench.SIDECAR_PORT
+    bench_params = BenchParameters({
+        "faults": 0, "nodes": [n], "rate": [cfg["rate"]],
+        "tx_size": cfg["tx_size"], "duration": cfg["duration"],
+        "tpu_sidecar": True, "sidecar_warm_rlc": True, "scheme": scheme})
+    node_params = NodeParameters.default(
+        tpu_sidecar=f"127.0.0.1:{port}",
+        scheme=None if scheme == "ed25519" else scheme)
+    node_params.json["mempool"]["batch_size"] = cfg["batch_size"]
+    node_params.json["mempool"]["max_batch_delay"] = cfg["batch_delay"]
+    node_params.json["consensus"]["timeout_delay"] = cfg["timeout"]
+    bench = Bench(bench_params, node_params)
+    seen: dict = {}
+    stop = threading.Event()
+    batch, host_mask = forged_batch() if scheme == "ed25519" else (None,
+                                                                    None)
+
+    def send_forged():
+        # The sidecar answers a PING once warm; the replicas boot next and
+        # the harness samples after 2 x timeout: half-way through the
+        # window, the batch goes.
+        while not stop.is_set():
+            try:
+                with SidecarClient(port=port, timeout=5) as c:
+                    c.ping()
+                break
+            except (ConnectionError, OSError):
+                stop.wait(0.5)
+        if stop.wait(2 * cfg["timeout"] / 1000 + cfg["duration"] / 2):
+            return
+        try:
+            with SidecarClient(port=port, timeout=120) as c:
+                before = c.stats()
+                t = time.monotonic()
+                seen["mask"] = c.verify_batch(*batch)
+                seen["forged_ms"] = (time.monotonic() - t) * 1e3
+                seen["forged_window"] = (before, c.stats())
+        except Exception as e:  # noqa: BLE001 - reported as a failure
+            seen["forged_error"] = repr(e)
+
+    forger = threading.Thread(target=send_forged, daemon=True) \
+        if batch is not None else None
+    cwd = os.getcwd()
+    t0 = time.monotonic()
+    os.chdir(work)
+    try:
+        if forger is not None:
+            forger.start()
+        parser = bench.run()
+        if forger is not None:
+            forger.join(timeout=300)
+        logs = PathMaker.logs_path()
+        with open(PathMaker.sidecar_stats_file()) as f:
+            stats = json.load(f)
+        with open(PathMaker.sidecar_log_file()) as f:
+            sidecar_log = f.read()
+        samples, _ = read_samples(PathMaker.metrics_file())
+        summary, _ = build_run_trace(logs)
+        with open(PathMaker.sidecar_spans_file()) as f:
+            spans, _ = parse_spans(f.read())
+        node_logs = {}
+        for path in glob.glob(os.path.join(logs, "node-*.log")):
+            with open(path, errors="replace") as f:
+                node_logs[os.path.basename(path)] = f.read()
+        kept = os.path.join(work, f"logs-{scheme}")
+        shutil.rmtree(kept, ignore_errors=True)
+        shutil.copytree(logs, kept)
+        log_path = os.path.join(kept, os.path.basename(
+            PathMaker.sidecar_log_file()))
+    except BenchError as e:
+        fail(f"harness {scheme}: {e} ({e.cause})")
+    finally:
+        stop.set()
+        bench._kill_nodes()
+        # The replicas' stores grow by gigabytes at this rate; the logs
+        # stay for reading.
+        for store in glob.glob(os.path.join(work, ".db-*")):
+            shutil.rmtree(store, ignore_errors=True)
+        os.chdir(cwd)
+    wall = time.monotonic() - t0
+
+    window = [s for s in split_samples(samples)[0] if s.get("ok")]
+    if len(window) < 2:
+        fail(f"harness {scheme}: {len(window)} OP_STATS sample(s) in the "
+             f"window")
+    first, last = window[0]["stats"], window[-1]["stats"]
+    t0_win, t1_win = window[0]["t"], window[-1]["t"]
+    launches = {k: v - first["kernels"].get(k, 0)
+                for k, v in last["kernels"].items()}
+    launches["probe"] = first["kernels"]["probe"]
+    cons_tps, _, _ = parser._consensus_throughput()
+    e2e_tps, _, _ = parser._end_to_end_throughput()
+    cons_ms = parser._consensus_latency() * 1e3
+    e2e_ms = parser._end_to_end_latency() * 1e3
+    guard = stats.get("guard", {})
+    paths = stats.get("paths", {})
+    waits = stats.get("queue_wait", {})
+    routes, route_faults = node_routes(scheme, node_logs, spans)
+    # The sidecar's device-stage spans over the sampled window: the wall
+    # its launches spent from dispatch to fetch, an upper bound on the
+    # card's busy time (a BLS request's span holds its host preparation
+    # too).
+    device_ms = sum(r.get("dur_ms", 0.0) for r in spans
+                    if r.get("stage") == "device" and t0_win <= r["t"] < t1_win)
+    line = {
+        "leg": scheme, "card": card, "nodes": n,
+        "rate": cfg["rate"], "tx_size": cfg["tx_size"],
+        "duration_s": cfg["duration"], "wall_s": round(wall, 3),
+        "window_s": round(t1_win - t0_win, 3),
+        "device_span_share": round(device_ms / 1e3 / (t1_win - t0_win), 4),
+        "commits": len(parser.commits),
+        "consensus_tps": round(cons_tps, 3),
+        "consensus_latency_ms": round(cons_ms, 3),
+        "end_to_end_tps": round(e2e_tps, 3),
+        "end_to_end_latency_ms": round(e2e_ms, 3),
+        "paths": paths, "device": stats.get("device"),
+        "device_ok": guard.get("device_ok"),
+        "host_fallback_records": guard.get("host_fallback_records"),
+        "busy_replies": guard.get("busy_replies"),
+        "queue_full": stats.get("queue_full"),
+        "replica_routes": routes,
+        "launches": {k: v for k, v in launches.items() if v},
+        "queue_wait": {c: {"p50_ms": w.get("p50_ms"), "p99_ms":
+                           w.get("p99_ms"), "n": w.get("n")}
+                       for c, w in waits.items()},
+        "sidecar_breakdown": summary.get("sidecar"),
+        "critical_path": {k: {"n": v.get("n"), "p50_ms": v.get("p50_ms"),
+                              "p99_ms": v.get("p99_ms")}
+                          for k, v in (summary.get("segments") or {})
+                          .items()},
+        "join": summary.get("join"),
+    }
+    if batch is not None:
+        # Launches while the forged batch was in flight: its own and any
+        # of the committee's that ran beside it.
+        before, after = seen.get("forged_window", ({}, {}))
+        line["forged_batch"] = {
+            "votes": len(batch[0]), "invalid": host_mask.count(False),
+            "ms": round(seen.get("forged_ms", -1.0), 3),
+            "paths": {k: v - before.get("paths", {}).get(k, 0)
+                      for k, v in after.get("paths", {}).items()
+                      if v - before.get("paths", {}).get(k, 0)},
+            "launches_in_flight": {
+                k: v - before.get("kernels", {}).get(k, 0)
+                for k, v in after.get("kernels", {}).items()
+                if v - before.get("kernels", {}).get(k, 0)}}
+    print(f"harness {scheme}: {json.dumps(line, sort_keys=True)}",
+          flush=True)
+
+    marks = [m for m in HOST_ROUTE_MARKS if m in sidecar_log]
+    if marks:
+        fail(f"harness {scheme}: the sidecar log ({log_path}) shows "
+             f"{marks}")
+    if f"listening on 127.0.0.1:{port} (cuda" not in sidecar_log:
+        fail(f"harness {scheme}: the sidecar did not listen on the card")
+    if not parser.commits or not all(
+            x > 0 and math.isfinite(x)
+            for x in (cons_ms, e2e_ms, cons_tps, e2e_tps)):
+        fail(f"harness {scheme}: no commits or a non-finite metric")
+    if guard.get("device_ok") is not True or \
+            guard.get("host_fallback_records") or guard.get("busy_replies"):
+        fail(f"harness {scheme}: guard {guard}")
+    if any(stats.get("queue_full", {}).values()):
+        fail(f"harness {scheme}: OP_STATS queue_full "
+             f"{stats['queue_full']}: shed requests verify on the host")
+    if route_faults:
+        fail(f"harness {scheme}: verified off the sidecar: {route_faults}")
+    for name in HARNESS_KERNELS[scheme]:
+        if not launches.get(name):
+            fail(f"harness {scheme}: the committee launched no {name}")
+    if not paths or set(paths) - set(
+            DEVICE_PATHS if scheme == "ed25519" else BLS_PATHS):
+        fail(f"harness {scheme}: OP_STATS paths {paths}")
+    if scheme == "ed25519":
+        if "forged_error" in seen or seen.get("mask") != host_mask:
+            fail(f"harness ed25519: the forged batch's mask "
+                 f"{seen.get('mask')} ({seen.get('forged_error')}) is not "
+                 f"the host mask")
+    elif "BLS self-check exact" not in sidecar_log:
+        fail("harness bls: no 'BLS self-check exact' in the sidecar log")
+    return launches
+
+
+def harness_phase(card: str) -> dict:
+    """Phase 14: build native/, then the Ed25519 leg and the BLS leg of
+    a 4-node committee of the unchanged C++ nodes through the port's
+    sidecar on the card, both in build/chip/harness/.  Returns the
+    kernels' launches over both legs' sampled windows (the forged batch
+    included; the probe's at the sidecars' boots)."""
+    work = os.path.join(REPO, "build", "chip", "harness")
+    os.makedirs(work, exist_ok=True)
+    native = os.path.join(work, "native")
+    if not os.path.islink(native):
+        os.symlink(os.path.join(REPO, "native"), native)
+    native_build(work)
+    total: dict = {}
+    for scheme in ("ed25519", "bls"):
+        t0 = time.monotonic()
+        for k, v in harness_leg(scheme, card, work).items():
+            total[k] = total.get(k, 0) + v
+        print(f"harness {scheme} leg: {time.monotonic() - t0:.3f} s",
+              flush=True)
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "hotstuff_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2915,9 +3348,14 @@ def main() -> int:
     t0 = time.monotonic()
     offchain_launches = offchain_phase(dev)
     print(f"offchain phase: {time.monotonic() - t0:.3f} s", flush=True)
+    # Phase 14: the committee of C++ nodes through the harness.
+    t0 = time.monotonic()
+    harness_launches = harness_phase(card)
+    print(f"harness phase: {time.monotonic() - t0:.3f} s", flush=True)
     for row in rows + bls_rows + [product_row]:
         row["launches_ring"] = ring_launches.get(row["name"], 0)
         row["launches_offchain"] = offchain_launches[row["name"]]
+        row["launches_harness"] = harness_launches.get(row["name"], 0)
 
     print(json.dumps({"kernels": rows + bls_rows + [product_row]}),
           flush=True)

@@ -72,7 +72,12 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "parallel.sharded_bls", "__graft_entry__",
                  "sidecar.ring", "offchain.eddsa", "offchain.bench",
                  "offchain.secp256k1", "offchain.ecdsa", "offchain.schnorr",
-                 "offchain.__main__"):
+                 "offchain.__main__", "harness", "harness.__main__",
+                 "harness.aggregate", "harness.commands", "harness.config",
+                 "harness.local", "harness.logs", "harness.settings",
+                 "harness.utils", "chaos", "chaos.netem", "chaos.plan",
+                 "chaos.recovery", "chaos.runner", "chaos.slo", "obs",
+                 "obs.sampler", "obs.spans", "obs.trace"):
         assert f"hotstuff_tpu_torch.{name}" in mods
     proc = _run(_CHECK.format(repo=REPO, mods=mods))
     assert proc.returncode == 0, proc.stderr
