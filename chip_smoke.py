@@ -145,7 +145,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      show the boot self-check exact.  One JSON line per leg: TPS and
      latency, routes, launches per kernel over the sampled window,
      queue waits, the trace's sidecar breakdown and critical path, the
-     card.
+     card;
+ 15. the headline bench: ``python -m hotstuff_tpu_torch.bench`` in its
+     own process at full width (16 sub-batches of 1024 a round, 20
+     rounds, best of 4; every field at its sizes and default budget).
+     Its last line must carry a live value above 0, vs_baseline against
+     the single-core OpenSSL baseline it names, the card as phase 1
+     names it, every field of the root bench's probes present and
+     passing its bar, and the launch tallies: each headline call
+     exactly 16 decompress, 32 point_ladder, 16 point_multiples and 160
+     field_mul launches, the rlc field through rlc_scalars, rlc_reduce
+     and msm_window_accum, K0 once.
 
 The line before the last is a JSON object listing the kernels with
 their launches on the main paths (over the requests, the probe's at
@@ -154,7 +164,8 @@ requests; fq12_product over phase 11's; ``launches_mesh`` over phase
 11's requests, ``launches_ring`` over phase 12's, ``launches_offchain``
 over phase 13, ``launches_harness`` over phase 14's sampled windows
 (the committees' and the forged batch's), the probe's at the sidecars'
-boots; the probe's library time is
+boots; ``launches_bench_round`` one call of phase 15's headline (one
+round), ``launches_bench_rlc`` its rlc field; the probe's library time is
 torch.add's), times and bounds;
 the last line is {"ok": true, "device":
 {...}}.  Without a CUDA device, or without the rest of the repository
@@ -3235,6 +3246,126 @@ def harness_phase(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the headline bench (python -m hotstuff_tpu_torch.bench)
+# ---------------------------------------------------------------------------
+
+# The bench's outer deadline here (HOTSTUFF_TPU_BENCH_DEADLINE, the root
+# bench's variable; it cuts no work: past it the bench re-prints its
+# last line with "killed" and exits 1), and this phase's own timeout.
+BENCH_DEADLINE_S = 400
+BENCH_TIMEOUT_S = 460
+
+# The line's keys: the root bench's, less msm_window_chunk, mesh_rlc,
+# committee_scale, cadence and fleet, plus device.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "rlc", "roofline",
+              "viewchange", "sched", "chaos", "trace", "surge", "guard",
+              "users", "device"}
+BENCH_BEST = {"best_on_record", "best_vs_baseline", "best_measured_at",
+              "note"}
+
+# Launches of one headline call (G = 16 sub-batches of 1024 through the
+# per-signature program): each sub-batch decompresses once, runs the
+# ladder and the comb, builds one multiples table, and its final compare
+# launches K1 ten times.
+BENCH_ROUND = {"decompress": 16, "point_ladder": 32, "point_multiples": 16,
+               "field_mul": 160}
+
+
+def bench_phase(card: str) -> dict:
+    """Phase 15: the port's headline bench on the card, in its own
+    process, at full width (G x N = 16 x 1024, 20 rounds, best of 4).
+    Checks its last line: the metric, a live value above 0, vs_baseline
+    against the OpenSSL baseline it names, the card as nvidia-smi names
+    it, every field of the root bench's probes present and passing its
+    bar, and the launch tallies: the headline through decompress and
+    point_ladder (exactly BENCH_ROUND a call), the rlc field through
+    rlc_scalars, rlc_reduce and msm_window_accum, K0 once.  Returns the
+    tallies."""
+    env = dict(os.environ, HOTSTUFF_TPU_BENCH_DEADLINE=str(BENCH_DEADLINE_S))
+    print(f"bench: python -m hotstuff_tpu_torch.bench, no cut (G x N = "
+          f"16 x 1024, ROUNDS 20, TRIALS 4, every field's sizes and the "
+          f"default stage budgets); outer deadline {BENCH_DEADLINE_S} s",
+          flush=True)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "hotstuff_tpu_torch.bench"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    lines = [x for x in proc.stdout.splitlines() if x.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        fail(f"bench exited {proc.returncode} after {wall:.1f} s: "
+             f"{proc.stderr[-3000:]}")
+    line = json.loads(lines[-1])
+    # A best on record (a run of these kernels in this checkout that
+    # measured more) rides beside the live value, never in its place.
+    if set(line) - BENCH_BEST != BENCH_KEYS:
+        fail(f"bench line keys {sorted(line)}")
+    if line["metric"] != "ed25519-batch-verify" or \
+            line["unit"] != "sigs/sec" or not line["value"] > 0 or \
+            "killed" in line:
+        fail(f"bench headline {line['metric']} {line['value']}")
+    dev = line["device"]
+    if f"{dev['name']}, {dev['power_limit']}" != card:
+        fail(f"bench device {dev['name']}, {dev['power_limit']} is not "
+             f"{card}")
+    base = dev["baseline"]
+    if not base["library"].startswith("cryptography ") or \
+            "OpenSSL" not in base["library"] or base["cores"] != 1 or \
+            abs(line["vs_baseline"]
+                - line["value"] / base["sigs_per_s"]) > 0.002:
+        fail(f"bench vs_baseline {line['vs_baseline']} against {base}")
+    rlc, roof, view = line["rlc"], line["roofline"], line["viewchange"]
+    for field, sizes, key in ((rlc, (4, 16, 64, 256), "speedup"),
+                              (roof, (64, 256, 1024), "sigs_per_s_chip"),
+                              (view, (20, 100, 300), "speedup")):
+        for n in sizes:
+            if not field.get(f"n{n}", {}).get(key, 0) > 0:
+                fail(f"bench n{n}: {field.get(f'n{n}')}")
+    if roof["route"] != "cuda" or roof["card"] != dev["name"]:
+        fail(f"bench roofline route {roof['route']} card {roof['card']}")
+    chaos = line["chaos"]
+    wan = chaos["wan"]
+    bars = {"viewchange": view["ok"], "surge": line["surge"]["ok"],
+            "guard": line["guard"]["ok"], "users": line["users"]["ok"],
+            "chaos recovered": chaos["recovered"],
+            "chaos slo": chaos["slo"]["ok"],
+            "wan": wan["roundtrip_ok"] and wan["partition_enforced"]
+            and wan["healed"],
+            "trace": line["trace"]["roundtrip_ok"],
+            "sched": line["sched"]["paths"] == {"host": 2}}
+    if not all(v is True for v in bars.values()):
+        fail(f"bench probes: {bars}")
+    tallies = dev["launches"]
+    calls = dev["headline_calls"]
+    head = tallies["headline"]
+    if calls != 1 + 20 * 4 or \
+            head != {k: v * calls for k, v in BENCH_ROUND.items()}:
+        fail(f"bench headline launches {head} over {calls} calls")
+    for name in ("rlc_scalars", "rlc_reduce", "msm_window_accum",
+                 "decompress", "point_ladder"):
+        if not tallies["rlc"].get(name):
+            fail(f"bench rlc launched no {name}: {tallies['rlc']}")
+    if tallies["probe"].get("probe") != 1:
+        fail(f"bench probe launches {tallies['probe']}")
+    print(f"bench: {line['value']} sigs/s, vs_baseline {line['vs_baseline']}"
+          f" ({base['sigs_per_s']} verifies/s, {base['library']}, one core)"
+          f" on {card}; {wall:.3f} s", flush=True)
+    print("bench rlc: " + json.dumps(rlc), flush=True)
+    print("bench roofline: " + json.dumps(roof), flush=True)
+    print("bench viewchange: " + json.dumps(view), flush=True)
+    print("bench probes: " + json.dumps(
+        {"guard": line["guard"], "surge": line["surge"]["latency"],
+         "users": {k: v.get("verified_goodput_sigs_per_s")
+                   for k, v in line["users"].items()
+                   if isinstance(v, dict)},
+         "wan": wan}), flush=True)
+    print("bench launches: " + json.dumps(
+        {"calls": calls, **tallies, "stage_s": dev["stage_s"]}), flush=True)
+    return {"round": {k: v // calls for k, v in head.items()},
+            "rlc": tallies["rlc"]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "hotstuff_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3352,10 +3483,17 @@ def main() -> int:
     t0 = time.monotonic()
     harness_launches = harness_phase(card)
     print(f"harness phase: {time.monotonic() - t0:.3f} s", flush=True)
+    # Phase 15: the headline bench.
+    t0 = time.monotonic()
+    bench_launches = bench_phase(card)
+    print(f"bench phase: {time.monotonic() - t0:.3f} s", flush=True)
     for row in rows + bls_rows + [product_row]:
         row["launches_ring"] = ring_launches.get(row["name"], 0)
         row["launches_offchain"] = offchain_launches[row["name"]]
         row["launches_harness"] = harness_launches.get(row["name"], 0)
+        row["launches_bench_round"] = bench_launches["round"].get(
+            row["name"], 0)
+        row["launches_bench_rlc"] = bench_launches["rlc"].get(row["name"], 0)
 
     print(json.dumps({"kernels": rows + bls_rows + [product_row]}),
           flush=True)

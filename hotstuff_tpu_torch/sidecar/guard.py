@@ -462,6 +462,7 @@ class LaunchGuard:
         # one thunk and exits — a stop flag could not interrupt a hung
         # device call anyway, and ABANDONING the thread on a wedge is
         # the crash-only design (daemon: it dies with the process).
+        # graftlint: disable=daemon-thread-without-stop-flag
         t = threading.Thread(target=self._run_call, args=(call, thunk),
                              daemon=True,
                              name=f"guard-launch-{next(self._ids)}")
@@ -470,6 +471,7 @@ class LaunchGuard:
         # is bounded by construction (evidence: _monitor_loop sets
         # call.done on every overrun; the monitor thread is started in
         # __init__ and only close() stops it).
+        # graftlint: disable=unsupervised-launch
         call.done.wait()
         with self._lock:
             self._calls.discard(call)

@@ -77,7 +77,8 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "harness.local", "harness.logs", "harness.settings",
                  "harness.utils", "chaos", "chaos.netem", "chaos.plan",
                  "chaos.recovery", "chaos.runner", "chaos.slo", "obs",
-                 "obs.sampler", "obs.spans", "obs.trace"):
+                 "obs.sampler", "obs.spans", "obs.trace", "bench",
+                 "crypto.txsign", "harness.loadgen"):
         assert f"hotstuff_tpu_torch.{name}" in mods
     proc = _run(_CHECK.format(repo=REPO, mods=mods))
     assert proc.returncode == 0, proc.stderr
@@ -95,6 +96,7 @@ from hotstuff_tpu_torch.sidecar.service import VerifyEngine
 from hotstuff_tpu_torch.parallel.mesh import make_mesh, virtual_mesh
 from hotstuff_tpu_torch import __graft_entry__ as graft
 from hotstuff_tpu_torch.offchain import bench, eddsa as off_eddsa
+from hotstuff_tpu_torch import bench as headline
 from hotstuff_tpu_torch.ops import field25519, field381
 assert not torch.cuda.is_available()
 sk, pk = ref.generate_keypair(b"\x07" * 32)
@@ -116,6 +118,12 @@ calls = [
     lambda: field381.mul_selfcheck(),
     lambda: bls381.selfcheck(),
     lambda: bench.measure_batch(sizes=(1,)),
+    lambda: headline.run(),
+    lambda: headline.probe_device(),
+    lambda: headline.rlc_compare((4,)),
+    lambda: headline.viewchange_headline((4,)),
+    lambda: headline.guard_headline_probe(),
+    lambda: headline.card_int_ops(),
 ]
 for call in calls:
     try:
