@@ -59,9 +59,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      no other kernel (launches counted over these requests and per
      request); each
      request's latency is split into the
-     device's check and the rest (host preparation: decoding,
-     aggregation, the subgroup test, hash-to-G2, the Miller lines, the
-     copy);
+     device's check and the rest, and the rest by stage (the per-vote G2
+     decode, aggregation, the subgroup test, the key decode, hash-to-G2
+     from a cold memo, the Miller lines per row, SIGN's G2
+     multiplication, the copy);
   8. profile the QC's and the TC's pairing check on the card (the
      requests' own Miller lines): wall time, torch.profiler's device
      busy time, kernel launches and operators by caller;
@@ -131,8 +132,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      of 15,000 B, a 1,000 ms timeout, --tpu-sidecar --warm-rlc; a 20 s
      window, the default's 30 cut) boots the port's sidecar on the card
      and a committee of the unchanged C++ nodes with their clients on
-     free ports, for Ed25519 and for BLS, in build/chip/harness/ (its
-     sweep reaches only processes running there).  Each leg must commit
+     free ports, for Ed25519, for BLS, and for Ed25519 under the fault
+     plan FAULT_PLAN (harness/faults.py: a replica killed and restarted,
+     then a wedge of the sidecar's next launch over OP_CHAOS; the 30 s
+     window the plan needs), in build/chip/harness/ (its sweep reaches
+     only processes running there).  Each of the first two legs must commit
      with finite consensus and end-to-end latency; its OP_STATS paths
      must be device routes only, with no request shed (queue_full, the
      guard's busy replies) and the guard's device up; its sidecar log
@@ -142,20 +146,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
      each within half the replicas' deadline; the committee must launch
      the scheme's kernels.  In the Ed25519 leg a forged batch of 67
      votes sent mid-run must get the host mask; the BLS leg's log must
-     show the boot self-check exact.  One JSON line per leg: TPS and
-     latency, routes, launches per kernel over the sampled window,
-     queue waits, the trace's sidecar breakdown and critical path, the
-     card;
+     show the boot self-check exact.  The fault leg must execute every
+     event, recover from each with a finite latency, commit after the
+     last, show the guard's wedge and reboot with the device up at
+     teardown, and route and launch on the device again after the
+     reboot with no host answer after it.  One JSON line per leg: TPS
+     and latency, routes, launches per kernel over the sampled window,
+     queue waits, the trace's sidecar breakdown and critical path (its
+     verify_submit->verify_reply segment is the verify round trip), the
+     chip host's load averages, the CPU share of the replicas, clients
+     and sidecar and its memory, the replicas' stores' size, what the
+     replicas and clients logged in counts (payload blocks proposed and
+     committed, digests a block, batches, view timeouts, TCs, consensus
+     events slower than 500 ms by kind, WARN lines by kind), for BLS the
+     engine thread's wall by request kind (OP_STATS ``bls_busy``), for
+     the fault leg its events and recoveries, the card;
  15. the headline bench: ``python -m hotstuff_tpu_torch.bench`` in its
      own process at full width (16 sub-batches of 1024 a round, 20
      rounds, best of 4; every field at its sizes and default budget).
      Its last line must carry a live value above 0, vs_baseline against
      the single-core OpenSSL baseline it names, the card as phase 1
      names it, every field of the root bench's probes present and
-     passing its bar, and the launch tallies: each headline call
-     exactly 16 decompress, 32 point_ladder, 16 point_multiples and 160
-     field_mul launches, the rlc field through rlc_scalars, rlc_reduce
-     and msm_window_accum, K0 once.
+     passing its bar (mesh_rlc and committee_scale: every size measured
+     on eight shards of the card, each route launching on every shard;
+     cadence and fleet: their ``ok``), and the launch tallies: each
+     headline call exactly 16 decompress, 32 point_ladder, 16
+     point_multiples and 160 field_mul launches, the rlc field through
+     rlc_scalars, rlc_reduce and msm_window_accum, K0 once.
 
 The line before the last is a JSON object listing the kernels with
 their launches on the main paths (over the requests, the probe's at
@@ -165,7 +182,8 @@ requests; fq12_product over phase 11's; ``launches_mesh`` over phase
 over phase 13, ``launches_harness`` over phase 14's sampled windows
 (the committees' and the forged batch's), the probe's at the sidecars'
 boots; ``launches_bench_round`` one call of phase 15's headline (one
-round), ``launches_bench_rlc`` its rlc field; the probe's library time is
+round), ``launches_bench_rlc`` its rlc field, ``launches_bench_mesh`` its
+mesh_rlc, committee_scale and cadence fields; the probe's library time is
 torch.add's), times and bounds;
 the last line is {"ok": true, "device":
 {...}}.  Without a CUDA device, or without the rest of the repository
@@ -1421,6 +1439,62 @@ def make_bls_requests():
     return reqs, want
 
 
+class StageClock:
+    """Times the BLS host preparation by stage: wraps each named function
+    of the port's modules (looked up by the callers at call time) to add
+    its calls and wall to the current request's tally, until
+    ``restore``.  The stages are disjoint: none calls another."""
+
+    def __init__(self, targets):
+        self.tally: dict = {}
+        self._saved = []
+        for module, attr, stage in targets:
+            real = getattr(module, attr)
+            self._saved.append((module, attr, real))
+            setattr(module, attr, self._wrap(real, stage))
+
+    def _wrap(self, real, stage):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                n, ms = self.tally.get(stage, (0, 0.0))
+                self.tally[stage] = (
+                    n + 1, ms + (time.perf_counter() - t0) * 1e3)
+        return timed
+
+    def take(self) -> dict:
+        tally, self.tally = self.tally, {}
+        return tally
+
+    def restore(self) -> None:
+        for module, attr, real in reversed(self._saved):
+            setattr(module, attr, real)
+        self._saved = []
+
+
+def bls_stage_targets():
+    """The BLS request body's host stages (sidecar/service.py
+    _execute_bls_inner, ops/bls381.py): per-vote G2 decode (the on-curve
+    check; an AGG request's subgroup test at decode falls in the rest),
+    signature aggregation, the subgroup test, public-key decode,
+    hash-to-G2, the Miller lines (one call a row), OP_BLS_SIGN's G2
+    scalar multiplication, and ``_check`` (the rows' stack and copy to
+    the card, and the device check inside it)."""
+    from hotstuff_tpu_torch.offchain import bls12381 as bls
+    from hotstuff_tpu_torch.ops import bls381 as B
+
+    return [(bls, "g2_decode_lax", "g2 decode"),
+            (bls, "aggregate", "aggregate"),
+            (bls, "g2_in_subgroup", "subgroup test"),
+            (bls, "g1_decode", "g1 decode"),
+            (bls, "hash_to_g2", "hash_to_g2"),
+            (B, "miller_lines", "miller_lines"),
+            (bls, "g2_mul", "g2_mul (sign)"),
+            (B, "_check", "copy and device check")]
+
+
 def bls_sidecar_phase(dev, reqs, want):
     """Phase 7, second half: the BLS requests through the port's sidecar
     on the card.  The launch counts are zeroed just before the requests
@@ -1430,6 +1504,7 @@ def bls_sidecar_phase(dev, reqs, want):
     requests, counts per request, {label: lines})."""
     import torch
 
+    from hotstuff_tpu_torch.offchain import bls12381 as bls
     from hotstuff_tpu_torch.ops import bls381 as B
     from hotstuff_tpu_torch.ops import kern
     from hotstuff_tpu_torch.sidecar import protocol as proto
@@ -1450,6 +1525,7 @@ def bls_sidecar_phase(dev, reqs, want):
     server = None
     per_request: dict = {}
     kept: dict = {}
+    clock = None
     B.pairings_check = timed_check
     try:
         t0 = time.monotonic()
@@ -1459,15 +1535,21 @@ def bls_sidecar_phase(dev, reqs, want):
         server = service.SidecarServer(("127.0.0.1", 0), engine)
         threading.Thread(target=server.serve_forever,
                          kwargs={"poll_interval": 0.1}, daemon=True).start()
+        # The first request meets a cold hash-to-G2 memo, as a fresh
+        # sidecar's first request does (make_bls_requests warmed it).
+        bls._hash_to_g2_cached.cache_clear()
+        clock = StageClock(bls_stage_targets())
         with SidecarClient(port=server.server_address[1],
                            timeout=600.0) as client:
             kern.reset_launches()
             for (label, method, args), expect in zip(reqs, want):
                 before = dict(kern.LAUNCHES)
                 n_checks = len(checks)
+                clock.take()
                 t0 = time.perf_counter()
                 got = getattr(client, method)(*args)
                 ms = (time.perf_counter() - t0) * 1e3
+                stages = clock.take()
                 delta = {k: kern.LAUNCHES[k] - before[k] for k in before
                          if kern.LAUNCHES[k] != before[k]}
                 per_request[label] = delta
@@ -1480,6 +1562,7 @@ def bls_sidecar_phase(dev, reqs, want):
                       f"host preparation and the rest "
                       f"{ms - device_ms:.3f} ms), kernel launches {delta}",
                       flush=True)
+                print_bls_stages(label, ms, device_ms, stages)
                 if got != expect:
                     fail(f"BLS {label}: {got!r} differs from the host "
                          f"reference {expect!r}")
@@ -1500,6 +1583,8 @@ def bls_sidecar_phase(dev, reqs, want):
         print(f"OP_STATS paths after the BLS requests: {stats['paths']}",
               flush=True)
     finally:
+        if clock is not None:
+            clock.restore()
         B.pairings_check = real_check
         if server is not None:
             server.shutdown()
@@ -1512,6 +1597,24 @@ def bls_sidecar_phase(dev, reqs, want):
           f"{ {k: launches[k] for k in BLS_KERNELS + BLS_OFF_PATH} }",
           flush=True)
     return launches, per_request, kept
+
+
+def print_bls_stages(label, ms, device_ms, stages) -> None:
+    """One request's host preparation by stage: each stage's calls and
+    ms (the Miller lines also per row), the copy (``_check`` less the
+    device check), and what no stage holds (the wire, the engine's
+    queue and guard, public-key aggregation)."""
+    out = {}
+    for stage, (n, t) in sorted(stages.items(), key=lambda kv: -kv[1][1]):
+        if stage == "copy and device check":
+            out["copy"] = {"n": n, "ms": round(t - device_ms, 3)}
+            out["device check"] = {"n": n, "ms": round(device_ms, 3)}
+            continue
+        out[stage] = {"n": n, "ms": round(t, 3)}
+        if stage == "miller_lines":
+            out[stage]["ms_per_row"] = round(t / n, 3)
+    out["rest"] = {"ms": round(ms - sum(t for _, t in stages.values()), 3)}
+    print(f"BLS {label} stages: {json.dumps(out)}", flush=True)
 
 
 def bls_profile_phase(dev, kept) -> None:
@@ -2992,9 +3095,15 @@ def node_routes(scheme: str, node_logs: dict, spans: list) -> tuple:
             expired += last - a > deadline_s
     requests = sum(len(v) for v in admitted.values())
     slowest_ms = max(waits, default=0.0) * 1e3
+    waits.sort()
     facts = {"replica_verify_submits": submits, "sidecar_requests": requests,
              "shed": shed, "open_at_teardown": open_at_end,
-             "slowest_request_ms": round(slowest_ms, 3)}
+             "slowest_request_ms": round(slowest_ms, 3),
+             "request_p50_ms": round(
+                 waits[len(waits) // 2] * 1e3, 3) if waits else None,
+             "request_p99_ms": round(
+                 waits[min(len(waits) - 1, int(0.99 * len(waits)))] * 1e3,
+                 3) if waits else None}
     if shed:
         faults.append(f"{shed} request(s) shed: answered OP_BUSY, the "
                       "replica verifies on the host")
@@ -3010,17 +3119,281 @@ def node_routes(scheme: str, node_logs: dict, spans: list) -> tuple:
     return facts, faults
 
 
-def harness_leg(scheme: str, card: str, work: str) -> dict:
+def leg_processes(work: str) -> dict:
+    """The leg's processes by kind, from /proc: {pid: kind} for the
+    replicas (``./node``), the clients (``./client``) and the port's
+    sidecar interpreter, each running in ``work``."""
+    root = os.path.realpath(work)
+    out = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            if os.readlink(f"/proc/{entry}/cwd") != root:
+                continue
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if argv[0] == b"./node":
+            out[int(entry)] = "nodes"
+        elif argv[0] == b"./client":
+            out[int(entry)] = "clients"
+        elif os.path.basename(argv[0]).startswith(b"python") and \
+                b"hotstuff_tpu_torch.sidecar" in argv:
+            out[int(entry)] = "sidecar"
+    return out
+
+
+def proc_cpu_s(pid: int) -> float:
+    """A process's user and system CPU seconds (/proc/<pid>/stat)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def meminfo_mb() -> dict:
+    """MemAvailable, Dirty and Writeback from /proc/meminfo, in MB."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemAvailable", "Dirty", "Writeback"):
+                out[key] = round(int(value.split()[0]) / 1024, 1)
+    return out
+
+
+class HostLoad(threading.Thread):
+    """Samples the chip host's load once a second while a leg runs: the
+    load averages, the CPU seconds of the leg's replicas, clients and
+    sidecar (every process of each kind, from /proc), and the memory's
+    available, dirty and writeback MB.  ``summary`` gives the first and
+    last samples that saw the sidecar up and each kind's CPU share
+    (cores) between them, so that a starved run can be told from a slow
+    one."""
+
+    KINDS = ("nodes", "clients", "sidecar")
+
+    def __init__(self, work: str):
+        super().__init__(daemon=True)
+        self.work = work
+        self.stop = threading.Event()
+        self.samples: list = []
+        self.last_cpu: dict = {}   # pid -> (kind, last CPU seconds read)
+
+    def run(self):
+        while not self.stop.is_set():
+            for pid, kind in leg_processes(self.work).items():
+                try:
+                    self.last_cpu[pid] = (kind, proc_cpu_s(pid))
+                except OSError:
+                    pass
+            # An exited process keeps its last reading, so a kind's sum
+            # never drops when a replica is killed.
+            cpu = dict.fromkeys(self.KINDS, 0.0)
+            for kind, secs in self.last_cpu.values():
+                cpu[kind] += secs
+            self.samples.append({
+                "t": time.monotonic(), "loadavg": os.getloadavg(),
+                "cpu_s": cpu, "mem_mb": meminfo_mb(),
+                "sidecar_up": any(k == "sidecar"
+                                  for k, _ in self.last_cpu.values())})
+            self.stop.wait(1.0)
+
+    def summary(self) -> dict:
+        up = [x for x in self.samples if x["sidecar_up"]]
+        if len(up) < 2:
+            return {"samples": len(self.samples), "cpus": os.cpu_count()}
+        first, last = up[0], up[-1]
+        dt = last["t"] - first["t"]
+        return {"cpus": os.cpu_count(),
+                "loadavg_start": [round(v, 2) for v in first["loadavg"]],
+                "loadavg_end": [round(v, 2) for v in last["loadavg"]],
+                "cpu_share": {k: round((last["cpu_s"][k]
+                                        - first["cpu_s"][k]) / dt, 3)
+                              for k in self.KINDS},
+                "mem_mb_start": first["mem_mb"],
+                "mem_mb_end": last["mem_mb"],
+                "dirty_mb_max": max(x["mem_mb"].get("Dirty", 0.0)
+                                    for x in up),
+                "over_s": round(dt, 3)}
+
+
+def committee_diagnostics(node_logs: dict, client_logs: dict) -> dict:
+    """What the replicas and clients logged, in counts: per replica the
+    blocks it proposed with a payload, the digests they carried and the
+    most in one block, the payload blocks it committed, the batches its
+    mempool sealed, its view timeouts and TCs, its store's WAL
+    compactions, its consensus events slower than 500 ms by event and
+    message kind (count, longest ms), its other WARN and ERROR lines by
+    kind (digits dropped), and its last METRICS line; per client the
+    transactions it reports sent (its last running total) and its WARN
+    lines by kind."""
+    import re
+
+    def kinds(text):
+        seen: dict = {}
+        for m in re.finditer(r"^\S+ (?:WARN|ERROR) ([^\]]+)\] (.*)$", text,
+                             re.M):
+            if m.group(2).startswith("SLOW event"):
+                continue
+            key = f"{m.group(1)}: {re.sub(r'[0-9]+', 'N', m.group(2))[:70]}"
+            seen[key] = seen.get(key, 0) + 1
+        return dict(sorted(seen.items(), key=lambda kv: -kv[1])[:5])
+
+    nodes = {}
+    for name, text in sorted(node_logs.items()):
+        blocks = len(re.findall(r"Created B\d+$", text, re.M))
+        metrics = re.findall(r"METRICS (.*)$", text, re.M)
+        per_block: dict = {}
+        for r in re.findall(r"Created B(\d+) -> ", text):
+            per_block[r] = per_block.get(r, 0) + 1
+        slow: dict = {}
+        for kind, ms in re.findall(
+                r"SLOW event (kind=-?\d+ msg_kind=-?\d+) took (\d+) ms",
+                text):
+            n, top = slow.get(kind, (0, 0))
+            slow[kind] = (n + 1, max(top, int(ms)))
+        nodes[name] = {
+            "proposed_blocks": blocks,
+            "proposed_digests": sum(per_block.values()),
+            "most_digests_a_block": max(per_block.values(), default=0),
+            "committed_blocks": len(re.findall(r"Committed B\d+$", text,
+                                               re.M)),
+            "batches": len(re.findall(r"contains \d+ B$", text, re.M)),
+            "timeouts": text.count("Timeout reached"),
+            "tcs": text.count("Formed TC"),
+            "wal_compactions": text.count("WAL compacted"),
+            "slow_events": {k: {"n": n, "max_ms": top}
+                            for k, (n, top) in slow.items()},
+            "warn": kinds(text),
+            "metrics": metrics[-1] if metrics else None}
+    clients = {}
+    for name, text in sorted(client_logs.items()):
+        sent = re.findall(r"Sent (\d+) transactions", text)
+        clients[name] = {"sent": max((int(x) for x in sent), default=0),
+                         "warn": kinds(text)}
+    return {"nodes": nodes, "clients": clients}
+
+
+# Phase 14's fault leg: the harness's fault plan (hotstuff_tpu_torch/
+# harness/faults.py): a replica killed and restarted on its store, then a
+# wedge of the sidecar's next launch (OP_CHAOS), which the guard's ladder
+# answers from the host before its crash-only reboot.  The harness's
+# pre-boot check needs 13 s of window after the last event (2 x the
+# replicas' 5 s default timeout + 3), so this leg keeps the local
+# default's 30 s window.
+FAULT_PLAN = "4 node:3 kill; 8 node:3 restart; 11 sidecar wedge"
+FAULT_LEG_DURATION = 30
+
+
+def fault_leg_summary(parser, events, window) -> dict:
+    """The fault leg's facts: each executed event and its recovery (the
+    parser's summary: the first commit after the event), the commits
+    after the last event, and from the sampled OP_STATS the wedge, the
+    reboot, the host answers before and after the device came back, and
+    the device's requests and launches after it."""
+    import math
+
+    chaos = parser.chaos or {}
+    last_wall = max((e.get("wall") or 0.0) for e in events) if events \
+        else 0.0
+    after = sum(1 for t in parser.commits.values() if t > last_wall)
+
+    def host(st):
+        return st.get("paths", {}).get("host", 0) + \
+            st.get("guard", {}).get("host_fallback_records", 0)
+
+    def device(st):
+        return sum(v for k, v in st.get("paths", {}).items()
+                   if k in DEVICE_PATHS)
+
+    t0 = window[0]["t"]
+    wedged = next((x for x in window
+                   if x["stats"].get("guard", {}).get("wedges")), None)
+    back = next((x for x in window if wedged is not None
+                 and x["t"] > wedged["t"]
+                 and x["stats"]["guard"].get("reboots")
+                 and x["stats"]["guard"].get("device_ok")
+                 and not x["stats"]["guard"].get("rebooting")), None)
+    last = window[-1]["stats"]
+    out = {"executed": len(events),
+           "injected_ok": all(e.get("ok", True) for e in events),
+           "events": [{"t": e.get("t"), "target": e.get("target"),
+                       "action": e.get("action"),
+                       "recovery_ms": e.get("recovery_ms")}
+                      for e in chaos.get("events", [])],
+           "max_recovery_ms": chaos.get("max_recovery_ms"),
+           "slo": [{k: v.get(k) for k in ("class", "recovery_ms", "slo_ms",
+                                          "ok")}
+                   for v in (chaos.get("slo") or {}).get("verdicts", [])],
+           "commits_after_last_event": after,
+           "wedge_sampled_at_s": None if wedged is None else
+           round(wedged["t"] - t0, 3),
+           "device_back_sampled_at_s": None if back is None else
+           round(back["t"] - t0, 3),
+           "host_answers": host(last),
+           "host_answers_after_device_back": None if back is None else
+           host(last) - host(back["stats"]),
+           "device_requests_after_device_back": None if back is None else
+           device(last) - device(back["stats"]),
+           "launches_after_device_back": None if back is None else
+           {k: v - back["stats"]["kernels"].get(k, 0)
+            for k, v in last["kernels"].items()
+            if v - back["stats"]["kernels"].get(k, 0)}}
+    out["recoveries_finite"] = bool(out["events"]) and all(
+        isinstance(e["recovery_ms"], (int, float))
+        and math.isfinite(e["recovery_ms"]) for e in out["events"])
+    return out
+
+
+def fault_leg_checks(line, stats, sidecar_log, port) -> None:
+    """The fault leg must show every event of the plan executed, a finite
+    recovery after each, commits after the last, the guard's wedge and
+    reboot with the device up at teardown, and the device routing and
+    launching again once it came back, with no host answer after that:
+    host answers belong to the ladder's handling of the wedge."""
+    chaos, guard = line["chaos"], stats.get("guard", {})
+    leg = line["leg"]
+    faults = []
+    if chaos["executed"] != len(FAULT_PLAN.split(";")) or \
+            not chaos["injected_ok"]:
+        faults.append(f"{chaos['executed']} event(s) executed, injected "
+                      f"ok {chaos['injected_ok']}")
+    if not chaos["recoveries_finite"]:
+        faults.append(f"recoveries {chaos['events']}")
+    if not chaos["commits_after_last_event"]:
+        faults.append("no commit after the last event")
+    if not (guard.get("wedges", 0) >= 1 and guard.get("reboots", 0) >= 1
+            and guard.get("device_ok") is True):
+        faults.append(f"guard {guard}")
+    if chaos["device_back_sampled_at_s"] is None or \
+            not chaos["device_requests_after_device_back"] or \
+            not chaos["launches_after_device_back"]:
+        faults.append("the device did not route again after the reboot")
+    if chaos["host_answers_after_device_back"]:
+        faults.append(f"{chaos['host_answers_after_device_back']} host "
+                      f"answer(s) after the device came back")
+    if f"listening on 127.0.0.1:{port} (cuda" not in sidecar_log:
+        faults.append("the sidecar did not listen on the card")
+    if faults:
+        fail(f"harness {leg}: {faults}")
+
+
+def harness_leg(scheme: str, card: str, work: str,
+                plan: str | None = None) -> dict:
     """One leg of phase 14: LocalBench (hotstuff_tpu_torch/harness) boots
     the port's sidecar on the card, a committee of HARNESS_LOCAL["nodes"]
     C++ nodes and their clients on free ports, runs the window and parses
     the logs, in ``work`` (its native/ is the repository's); the leg's
-    logs stay in ``work``/logs-<scheme>/.  Launches are counted over the
-    sampled window, from the harness's first OP_STATS sample (logs/
-    metrics.jsonl, taken once the committee has run 2 x timeout) to its
-    last; in the Ed25519 leg they include the forged batch that a client
-    sends half-way through.  Returns those launches (the probe's at
-    boot)."""
+    logs stay in ``work``/logs-<leg>/.  With ``plan`` (the Ed25519 fault
+    leg) the harness runs the fault plan through harness/faults.py over
+    a window of FAULT_LEG_DURATION s, and fault_leg_checks judges it.
+    Launches are counted over the sampled window, from the harness's
+    first OP_STATS sample (logs/metrics.jsonl, taken once the committee
+    has run 2 x timeout) to its last; in the Ed25519 leg they include
+    the forged batch that a client sends half-way through.  Returns
+    those launches (the probe's at boot)."""
     from hotstuff_tpu_torch.harness.config import (
         BenchParameters, NodeParameters)
     from hotstuff_tpu_torch.harness.local import LocalBench
@@ -3035,6 +3408,7 @@ def harness_leg(scheme: str, card: str, work: str) -> dict:
 
     cfg = HARNESS_LOCAL
     n = cfg["nodes"]
+    leg = scheme if plan is None else f"{scheme} faults"
     base = free_port_block(3 * n + 1)
 
     class Bench(LocalBench):
@@ -3044,8 +3418,10 @@ def harness_leg(scheme: str, card: str, work: str) -> dict:
     port = Bench.SIDECAR_PORT
     bench_params = BenchParameters({
         "faults": 0, "nodes": [n], "rate": [cfg["rate"]],
-        "tx_size": cfg["tx_size"], "duration": cfg["duration"],
-        "tpu_sidecar": True, "sidecar_warm_rlc": True, "scheme": scheme})
+        "tx_size": cfg["tx_size"],
+        "duration": cfg["duration"] if plan is None else FAULT_LEG_DURATION,
+        "tpu_sidecar": True, "sidecar_warm_rlc": True, "scheme": scheme,
+        "fault_plan": plan})
     node_params = NodeParameters.default(
         tpu_sidecar=f"127.0.0.1:{port}",
         scheme=None if scheme == "ed25519" else scheme)
@@ -3055,8 +3431,8 @@ def harness_leg(scheme: str, card: str, work: str) -> dict:
     bench = Bench(bench_params, node_params)
     seen: dict = {}
     stop = threading.Event()
-    batch, host_mask = forged_batch() if scheme == "ed25519" else (None,
-                                                                    None)
+    batch, host_mask = forged_batch() \
+        if scheme == "ed25519" and plan is None else (None, None)
 
     def send_forged():
         # The sidecar answers a PING once warm; the replicas boot next and
@@ -3083,10 +3459,12 @@ def harness_leg(scheme: str, card: str, work: str) -> dict:
 
     forger = threading.Thread(target=send_forged, daemon=True) \
         if batch is not None else None
+    load = HostLoad(work)
     cwd = os.getcwd()
     t0 = time.monotonic()
     os.chdir(work)
     try:
+        load.start()
         if forger is not None:
             forger.start()
         parser = bench.run()
@@ -3101,30 +3479,41 @@ def harness_leg(scheme: str, card: str, work: str) -> dict:
         summary, _ = build_run_trace(logs)
         with open(PathMaker.sidecar_spans_file()) as f:
             spans, _ = parse_spans(f.read())
-        node_logs = {}
-        for path in glob.glob(os.path.join(logs, "node-*.log")):
-            with open(path, errors="replace") as f:
-                node_logs[os.path.basename(path)] = f.read()
-        kept = os.path.join(work, f"logs-{scheme}")
+        node_logs, client_logs = {}, {}
+        for pattern, into in (("node-*.log", node_logs),
+                              ("client-*.log", client_logs)):
+            for path in glob.glob(os.path.join(logs, pattern)):
+                with open(path, errors="replace") as f:
+                    into[os.path.basename(path)] = f.read()
+        events = None
+        if plan is not None:
+            with open(PathMaker.chaos_events_file()) as f:
+                events = json.load(f)
+        kept = os.path.join(work, f"logs-{leg.replace(' ', '-')}")
         shutil.rmtree(kept, ignore_errors=True)
         shutil.copytree(logs, kept)
         log_path = os.path.join(kept, os.path.basename(
             PathMaker.sidecar_log_file()))
     except BenchError as e:
-        fail(f"harness {scheme}: {e} ({e.cause})")
+        fail(f"harness {leg}: {e} ({e.cause})")
     finally:
         stop.set()
+        load.stop.set()
         bench._kill_nodes()
         # The replicas' stores grow by gigabytes at this rate; the logs
         # stay for reading.
+        store_mb = 0.0
         for store in glob.glob(os.path.join(work, ".db-*")):
+            for root, _, files in os.walk(store):
+                store_mb += sum(os.path.getsize(os.path.join(root, f))
+                                for f in files) / 1e6
             shutil.rmtree(store, ignore_errors=True)
         os.chdir(cwd)
     wall = time.monotonic() - t0
 
     window = [s for s in split_samples(samples)[0] if s.get("ok")]
     if len(window) < 2:
-        fail(f"harness {scheme}: {len(window)} OP_STATS sample(s) in the "
+        fail(f"harness {leg}: {len(window)} OP_STATS sample(s) in the "
              f"window")
     first, last = window[0]["stats"], window[-1]["stats"]
     t0_win, t1_win = window[0]["t"], window[-1]["t"]
@@ -3146,9 +3535,9 @@ def harness_leg(scheme: str, card: str, work: str) -> dict:
     device_ms = sum(r.get("dur_ms", 0.0) for r in spans
                     if r.get("stage") == "device" and t0_win <= r["t"] < t1_win)
     line = {
-        "leg": scheme, "card": card, "nodes": n,
+        "leg": leg, "card": card, "nodes": n,
         "rate": cfg["rate"], "tx_size": cfg["tx_size"],
-        "duration_s": cfg["duration"], "wall_s": round(wall, 3),
+        "duration_s": bench_params.duration, "wall_s": round(wall, 3),
         "window_s": round(t1_win - t0_win, 3),
         "device_span_share": round(device_ms / 1e3 / (t1_win - t0_win), 4),
         "commits": len(parser.commits),
@@ -3172,7 +3561,20 @@ def harness_leg(scheme: str, card: str, work: str) -> dict:
                           for k, v in (summary.get("segments") or {})
                           .items()},
         "join": summary.get("join"),
+        "host_load": load.summary(),
+        "store_mb": round(store_mb, 1),
+        "committee": committee_diagnostics(node_logs, client_logs),
     }
+    if scheme == "bls":
+        # The engine thread's wall in BLS requests by path over the
+        # sampled window, and over the whole run (OP_STATS bls_busy).
+        busy0, busy1 = first.get("bls_busy", {}), last.get("bls_busy", {})
+        line["bls_busy_window"] = {
+            path: {"n": v["n"] - busy0.get(path, {}).get("n", 0),
+                   "ms": round(v["ms"] - busy0.get(path, {}).get("ms", 0.0),
+                               3)}
+            for path, v in busy1.items()}
+        line["bls_busy_run"] = stats.get("bls_busy")
     if batch is not None:
         # Launches while the forged batch was in flight: its own and any
         # of the committee's that ran beside it.
@@ -3187,7 +3589,14 @@ def harness_leg(scheme: str, card: str, work: str) -> dict:
                 k: v - before.get("kernels", {}).get(k, 0)
                 for k, v in after.get("kernels", {}).items()
                 if v - before.get("kernels", {}).get(k, 0)}}
-    print(f"harness {scheme}: {json.dumps(line, sort_keys=True)}",
+    if plan is not None:
+        line["plan"] = plan
+        line["chaos"] = fault_leg_summary(parser, events, window)
+        print(f"harness {leg}: {json.dumps(line, sort_keys=True)}",
+              flush=True)
+        fault_leg_checks(line, stats, sidecar_log, port)
+        return launches
+    print(f"harness {leg}: {json.dumps(line, sort_keys=True)}",
           flush=True)
 
     marks = [m for m in HOST_ROUTE_MARKS if m in sidecar_log]
@@ -3225,11 +3634,12 @@ def harness_leg(scheme: str, card: str, work: str) -> dict:
 
 
 def harness_phase(card: str) -> dict:
-    """Phase 14: build native/, then the Ed25519 leg and the BLS leg of
-    a 4-node committee of the unchanged C++ nodes through the port's
-    sidecar on the card, both in build/chip/harness/.  Returns the
-    kernels' launches over both legs' sampled windows (the forged batch
-    included; the probe's at the sidecars' boots)."""
+    """Phase 14: build native/, then the Ed25519 leg, the BLS leg and
+    the Ed25519 fault leg (FAULT_PLAN) of a 4-node committee of the
+    unchanged C++ nodes through the port's sidecar on the card, all in
+    build/chip/harness/.  Returns the kernels' launches over the legs'
+    sampled windows (the forged batch included; the probe's at the
+    sidecars' boots)."""
     work = os.path.join(REPO, "build", "chip", "harness")
     os.makedirs(work, exist_ok=True)
     native = os.path.join(work, "native")
@@ -3237,11 +3647,13 @@ def harness_phase(card: str) -> dict:
         os.symlink(os.path.join(REPO, "native"), native)
     native_build(work)
     total: dict = {}
-    for scheme in ("ed25519", "bls"):
+    for scheme, plan in (("ed25519", None), ("bls", None),
+                         ("ed25519", FAULT_PLAN)):
         t0 = time.monotonic()
-        for k, v in harness_leg(scheme, card, work).items():
+        for k, v in harness_leg(scheme, card, work, plan).items():
             total[k] = total.get(k, 0) + v
-        print(f"harness {scheme} leg: {time.monotonic() - t0:.3f} s",
+        leg = scheme if plan is None else f"{scheme} faults"
+        print(f"harness {leg} leg: {time.monotonic() - t0:.3f} s",
               flush=True)
     return total
 
@@ -3256,11 +3668,22 @@ def harness_phase(card: str) -> dict:
 BENCH_DEADLINE_S = 400
 BENCH_TIMEOUT_S = 460
 
-# The line's keys: the root bench's, less msm_window_chunk, mesh_rlc,
-# committee_scale, cadence and fleet, plus device.
+# The line's keys: the root bench's, less msm_window_chunk, plus device.
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "rlc", "roofline",
               "viewchange", "sched", "chaos", "trace", "surge", "guard",
-              "users", "device"}
+              "users", "mesh_rlc", "committee_scale", "cadence", "fleet",
+              "device"}
+# The mesh fields' sizes (the root bench's) and the routes each size runs
+# on eight shards of the card.
+BENCH_MESH = {"mesh_rlc": (("n64", "n256", "n1024"),
+                           ("per_sig_sharded", "rlc_sharded")),
+              "committee_scale": (("N100", "N300", "N1000"),
+                                  ("per_sig_sharded", "rlc_sharded",
+                                   "scan"))}
+# The kernel each mesh route must launch on every shard.
+MESH_ROUTE_KERNEL = {"per_sig_sharded": "point_ladder",
+                     "rlc_sharded": "msm_window_accum",
+                     "scan": "point_ladder"}
 BENCH_BEST = {"best_on_record", "best_vs_baseline", "best_measured_at",
               "note"}
 
@@ -3333,7 +3756,29 @@ def bench_phase(card: str) -> dict:
             "wan": wan["roundtrip_ok"] and wan["partition_enforced"]
             and wan["healed"],
             "trace": line["trace"]["roundtrip_ok"],
-            "sched": line["sched"]["paths"] == {"host": 2}}
+            "sched": line["sched"]["paths"] == {"host": 2},
+            "cadence": line["cadence"]["ok"],
+            "cadence mesh slot":
+                line["cadence"]["mesh_ring_slot"].get("bit_identical"),
+            "fleet": line["fleet"]["ok"]}
+    # The mesh fields: every size measured on eight shards of the card
+    # (the masks are checked inside: a wrong one is an error), each route
+    # launching its kernel on every shard.
+    for name, (sizes, routes) in BENCH_MESH.items():
+        field = line[name]
+        for size in sizes:
+            stats = field.get(size, {})
+            shards = stats.get("launches_per_shard", {})
+            bars[f"{name} {size}"] = (
+                "skipped" not in stats and "error" not in stats
+                and set(shards) == set(routes)
+                and all(shards[r].get(str(i), {}).get(MESH_ROUTE_KERNEL[r])
+                        for r in routes for i in range(8)))
+    slot = line["cadence"]["mesh_ring_slot"].get("launches_per_shard", {})
+    bars["cadence mesh slot launches"] = all(
+        slot.get(str(i), {}).get("point_ladder") for i in range(8))
+    for name in ("mesh_rlc", "committee_scale", "cadence", "fleet"):
+        print(f"bench {name}: " + json.dumps(line[name]), flush=True)
     if not all(v is True for v in bars.values()):
         fail(f"bench probes: {bars}")
     tallies = dev["launches"]
@@ -3362,8 +3807,12 @@ def bench_phase(card: str) -> dict:
          "wan": wan}), flush=True)
     print("bench launches: " + json.dumps(
         {"calls": calls, **tallies, "stage_s": dev["stage_s"]}), flush=True)
+    mesh: dict = {}
+    for stage in ("mesh_rlc", "committee_scale", "cadence"):
+        for k, v in tallies[stage].items():
+            mesh[k] = mesh.get(k, 0) + v
     return {"round": {k: v // calls for k, v in head.items()},
-            "rlc": tallies["rlc"]}
+            "rlc": tallies["rlc"], "mesh": mesh}
 
 
 def main() -> int:
@@ -3494,6 +3943,8 @@ def main() -> int:
         row["launches_bench_round"] = bench_launches["round"].get(
             row["name"], 0)
         row["launches_bench_rlc"] = bench_launches["rlc"].get(row["name"], 0)
+        row["launches_bench_mesh"] = bench_launches["mesh"].get(
+            row["name"], 0)
 
     print(json.dumps({"kernels": rows + bls_rows + [product_row]}),
           flush=True)

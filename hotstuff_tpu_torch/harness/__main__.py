@@ -3,13 +3,9 @@ reference (benchmark/fabfile.py:11-155) as a module entry point, the
 port's copy of hotstuff_tpu/harness/__main__.py:
 
   python -m hotstuff_tpu_torch.harness local [--nodes 4] [--rate 100000] ...
+  python -m hotstuff_tpu_torch.harness plot
   python -m hotstuff_tpu_torch.harness aggregate
   python -m hotstuff_tpu_torch.harness logs [DIR]
-
-``local --fault-plan``, ``plot``, ``remote``, ``install``, ``kill`` and
-the cloud actions need modules the port does not have yet
-(harness/faults.py, plot.py, remote.py, instance.py): they exit with an
-error that names ROADMAP.md Queue A.
 """
 
 from __future__ import annotations
@@ -69,6 +65,37 @@ def cmd_aggregate(args):
     print("aggregated series + matrix written to plots/")
 
 
+def cmd_plot(args):
+    from .aggregate import LogAggregator
+    from .plot import Ploter, PlotError
+
+    agg = LogAggregator(max_latencies=args.max_latency)
+    agg.print()
+    agg.print_matrix()
+    try:
+        ploter = Ploter()
+        ploter.plot_latency()
+        ploter.plot_robustness()
+        if args.max_latency:
+            ploter.plot_tps()
+        try:
+            ploter.plot_matrix()
+        except PlotError:
+            pass  # a single-cell matrix has nothing to draw
+        # grafttrace artifacts from the LAST run's logs dir (per-stage
+        # latency histograms + the sampled metrics time series); absent
+        # when the last run predates tracing or booted no sidecar.
+        for fn in (ploter.plot_trace, ploter.plot_metrics):
+            try:
+                fn()
+            except PlotError:
+                pass
+        print("plots written to plots/")
+    except PlotError as e:
+        print(f"plot failed: {e}")
+        sys.exit(1)
+
+
 def cmd_logs(args):
     from .logs import LogParser, ParseError
 
@@ -80,23 +107,114 @@ def cmd_logs(args):
         sys.exit(1)
 
 
-def cmd_not_ported(args):
+def _load_settings(args):
+    from .settings import Settings, SettingsError
+    from .utils import BenchError
+
+    try:
+        return Settings.load(args.settings)
+    except SettingsError as e:
+        raise BenchError("Failed to load settings", e)
+
+
+def _resolve_hosts(args, settings):
+    """Explicit --hosts beats settings.json's \"hosts\" list beats the
+    cloud inventory (remote.py:31-50 host discovery analogue)."""
+    if args.hosts:
+        return args.hosts
+    if settings.hosts:
+        return settings.hosts
+    from .instance import InstanceManager
+
+    return InstanceManager(settings).hosts()
+
+
+def cmd_remote(args):
+    from .config import BenchParameters, ConfigError, NodeParameters
+    from .remote import Bench
     from .utils import BenchError, Print
 
-    Print.error(BenchError(
-        f"'{args.command}' needs {NOT_PORTED[args.command]}, which the "
-        "port does not have yet: see ROADMAP.md Queue A"))
-    sys.exit(2)
+    try:
+        settings = _load_settings(args)
+        hosts = _resolve_hosts(args, settings)
+        bench_params = BenchParameters({
+            "faults": args.faults,
+            "nodes": args.nodes,
+            "rate": args.rate,
+            "tx_size": args.tx_size,
+            "duration": args.duration,
+            "runs": args.runs,
+        })
+        node_params = NodeParameters.default(chain=args.chain)
+        bench = Bench(settings, hosts, user=args.user,
+                      fault_plan=args.fault_plan, wan=args.wan,
+                      slos=args.slo)
+        if args.install:
+            bench.install()
+        if args.update:
+            bench.update()
+        bench.run(bench_params, node_params, debug=args.debug)
+    except ConfigError as e:
+        Print.error(BenchError("Invalid benchmark parameters", e))
+        sys.exit(1)
+    except BenchError as e:
+        Print.error(e)
+        sys.exit(1)
 
 
-NOT_PORTED = {
-    "plot": "harness/plot.py",
-    "remote": "harness/remote.py and instance.py",
-    "install": "harness/remote.py",
-    "kill": "harness/remote.py",
-    **{action: "harness/instance.py"
-       for action in ("create", "destroy", "start", "stop", "info")},
-}
+def cmd_install(args):
+    from .remote import Bench
+    from .utils import BenchError, Print
+
+    try:
+        settings = _load_settings(args)
+        hosts = _resolve_hosts(args, settings)
+        Bench(settings, hosts, user=args.user).install()
+    except BenchError as e:
+        Print.error(e)
+        sys.exit(1)
+
+
+def cmd_kill(args):
+    """Stop every node/client on the fleet (fabfile.py kill analogue)."""
+    from .remote import Bench
+    from .utils import BenchError, Print
+
+    try:
+        settings = _load_settings(args)
+        hosts = _resolve_hosts(args, settings)
+        Bench(settings, hosts, user=args.user).kill()
+        Print.info(f"killed node/client processes on {len(hosts)} host(s)")
+    except BenchError as e:
+        Print.error(e)
+        sys.exit(1)
+
+
+def cmd_cloud(args):
+    """AWS instance lifecycle (fabfile.py create/destroy/start/stop/info
+    analogue); requires boto3 + credentials."""
+    from .instance import InstanceManager
+    from .utils import BenchError, Print
+
+    try:
+        settings = _load_settings(args)
+        manager = InstanceManager(settings)
+        if args.action == "create":
+            manager.create_instances(args.instances)
+        elif args.action == "destroy":
+            manager.terminate_instances()
+        elif args.action == "start":
+            manager.start_instances()
+        elif args.action == "stop":
+            manager.stop_instances()
+        elif args.action == "info":
+            manager.print_info()
+    except BenchError as e:
+        Print.error(e)
+        sys.exit(1)
+    except Exception as e:  # boto3/botocore errors (no credentials, API)
+        Print.error(BenchError("Cloud operation failed", e))
+        sys.exit(1)
 
 
 def main(argv=None):
@@ -143,10 +261,12 @@ def main(argv=None):
                    default="ed25519",
                    help="signature scheme (bls implies --tpu-sidecar)")
     p.add_argument("--fault-plan", default=None, metavar="PATH|SPEC",
-                   help="graftchaos fault plan (a JSON file or an inline "
-                        "spec like '5 sidecar kill; 10 sidecar restart'); "
-                        "parsed, then refused: the port has no fault "
-                        "injector yet (ROADMAP.md Queue A)")
+                   help="graftchaos fault plan to execute against the "
+                        "running bench: a JSON file, or an inline spec "
+                        "like '5 sidecar kill; 10 sidecar restart; "
+                        "12 node:1 pause; 15 node:1 resume' (times are "
+                        "seconds into the run window; the summary "
+                        "reports per-fault recovery latency)")
     p.add_argument("--wan", default=None, metavar="PATH|SPEC",
                    help="graftwan link-shape spec (chaos/netem.py): a "
                         "JSON file or inline DSL like 'node:0>sidecar "
@@ -173,20 +293,74 @@ def main(argv=None):
     p.add_argument("--max-latency", type=int, nargs="*", default=[])
     p.set_defaults(func=cmd_aggregate)
 
+    p = sub.add_parser("plot", help="aggregate + plot")
+    p.add_argument("--max-latency", type=int, nargs="*", default=[])
+    p.set_defaults(func=cmd_plot)
+
     p = sub.add_parser("logs", help="parse a logs directory")
     p.add_argument("directory", nargs="?", default="logs")
     p.add_argument("--faults", type=int, default=0)
     p.set_defaults(func=cmd_logs)
 
-    for name in NOT_PORTED:
-        p = sub.add_parser(name, help=f"not ported yet ({NOT_PORTED[name]})")
-        p.set_defaults(func=cmd_not_ported)
+    def add_fleet_args(p):
+        p.add_argument("--settings", default="settings.json")
+        p.add_argument("--hosts", nargs="*", default=[],
+                       help="override host list (else settings.json "
+                            "'hosts', else the cloud inventory)")
+        p.add_argument("--user", default="ubuntu")
 
-    # An unported command takes any arguments: it only names what is
-    # missing.
-    args, rest = ap.parse_known_args(argv)
-    if rest and args.func is not cmd_not_ported:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    p = sub.add_parser("remote",
+                       help="multi-host benchmark matrix over ssh")
+    add_fleet_args(p)
+    p.add_argument("--nodes", type=int, nargs="+", default=[4])
+    p.add_argument("--faults", type=int, default=0)
+    p.add_argument("--rate", type=int, nargs="+", default=[50_000])
+    p.add_argument("--tx-size", type=int, default=512)
+    p.add_argument("--duration", type=int, default=30)
+    p.add_argument("--runs", type=int, default=1)
+    p.add_argument("--chain", type=int, choices=range(2, 9), default=2,
+                   metavar="K",
+                   help="commit-rule depth: k-chain in [2, 8] (default 2)")
+    p.add_argument("--install", action="store_true",
+                   help="install toolchain on hosts first")
+    p.add_argument("--update", action="store_true",
+                   help="git pull + rebuild on hosts first")
+    p.add_argument("--fault-plan", default=None, metavar="PATH|SPEC",
+                   help="graftchaos fault plan executed across the fleet "
+                        "mid-run over ssh (same schema as local)")
+    p.add_argument("--wan", default=None, metavar="PATH|SPEC",
+                   help="graftwan link-shape spec compiled to per-host "
+                        "'tc qdisc netem' egress shaping (same schema "
+                        "as local; needs sudo tc on the hosts)")
+    p.add_argument("--slo", default=None, metavar="PATH|SPEC",
+                   help="per-fault-class recovery SLO table overrides "
+                        "(same schema as local)")
+    p.add_argument("--debug", action="store_true")
+    p.set_defaults(func=cmd_remote)
+
+    p = sub.add_parser("install", help="install toolchain on the fleet")
+    add_fleet_args(p)
+    p.set_defaults(func=cmd_install)
+
+    p = sub.add_parser("kill", help="kill node/client on the fleet")
+    add_fleet_args(p)
+    p.set_defaults(func=cmd_kill)
+
+    for action, help_text in [
+        ("create", "create cloud instances"),
+        ("destroy", "terminate cloud instances"),
+        ("start", "start stopped cloud instances"),
+        ("stop", "stop cloud instances"),
+        ("info", "print cloud instance info"),
+    ]:
+        p = sub.add_parser(action, help=help_text)
+        p.add_argument("--settings", default="settings.json")
+        if action == "create":
+            p.add_argument("--instances", type=int, default=2,
+                           help="instances per region")
+        p.set_defaults(func=cmd_cloud, action=action)
+
+    args = ap.parse_args(argv)
     args.func(args)
 
 

@@ -228,11 +228,6 @@ class LocalBench:
                 self.fault_plan = parse_plan(fp)
             except PlanError as e:
                 raise BenchError("Invalid fault plan", e)
-            if self.fault_plan.events:
-                raise BenchError(
-                    "Fault plans need the fault injector (harness/"
-                    "faults.py), which the port does not have yet: see "
-                    "ROADMAP.md Queue A")
         else:
             self.fault_plan = None
         # graftwan: WAN spec + SLO table, parsed/validated NOW (same
@@ -723,6 +718,50 @@ class LocalBench:
         self._twin_proc = self._background_run(
             cmd, PathMaker.twin_log_file(0))
 
+    def _start_fault_plan(self, alive: int):
+        """Launch the graftchaos runner for this run window (None when no
+        plan).  Event times are offsets from the moment clients start
+        being paced — the same origin the plan author reasons in."""
+        if self.fault_plan is None or not self.fault_plan.events:
+            return None
+        # Validation already happened at the top of run() — before the
+        # bench paid compile/warmup — off the same construction-time
+        # inputs this method sees.
+        assert alive == self.nodes - self.faults
+        from ..chaos import PlanRunner
+        from .faults import LocalFaultInjector
+
+        Print.info(f"Executing fault plan "
+                   f"({len(self.fault_plan.events)} event(s))...")
+        self._injector = LocalFaultInjector(self)
+        runner = PlanRunner(self.fault_plan, self._injector)
+        runner.start()
+        return runner
+
+    def _finish_fault_plan(self, runner):
+        """Stop the runner, un-pause stragglers, and persist the executed
+        events next to the logs for the parser's recovery summary.  A
+        plan event the window closed on (a stalled injection pushing a
+        later event past stop()) is a FAILED chaos run: the acceptance
+        criterion is recovery after EVERY event, not every event that
+        happened to fire."""
+        if runner is None:
+            return
+        import json
+
+        runner.stop()
+        runner.join(timeout=30)
+        self._injector.cleanup()
+        events = runner.events()
+        with open(PathMaker.chaos_events_file(), "w") as f:
+            json.dump(events, f)
+        if len(events) < len(self.fault_plan.events):
+            raise BenchError(
+                f"fault plan executed only {len(events)} of "
+                f"{len(self.fault_plan.events)} event(s) before the run "
+                "window closed (an earlier injection stalled?); the "
+                "scripted scenario did not happen as written")
+
     def run(self, debug=False):
         assert isinstance(debug, bool)
         Print.heading("Starting local benchmark")
@@ -849,10 +888,10 @@ class LocalBench:
             # Wait for all transactions to be processed.
             Print.info(f"Running benchmark ({self.duration} sec)...")
             sleep(2 * timeout / 1000)
-            # The fault-plan runner starts here in the reference; the port
-            # refuses a plan at construction until harness/faults.py lands.
             sampler = self._start_metrics_sampler()
+            runner = self._start_fault_plan(alive)
             sleep(self.duration)
+            self._finish_fault_plan(runner)
             if sampler is not None:
                 sampler.stop()
             # Snapshot the scheduler telemetry BEFORE teardown (the

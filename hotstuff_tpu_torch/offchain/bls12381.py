@@ -580,7 +580,21 @@ _SQRT_CANDS.append(fq2_mul(_SQRT_CANDS[2], _SQRT_CANDS[1]))
 
 def hash_to_g2(msg: bytes):
     """Deterministic map msg -> G2 subgroup point (try-and-increment +
-    cofactor clearing)."""
+    cofactor clearing).  Memoized by the message bytes: a committee
+    signs and checks one digest several times a round (each replica's
+    OP_BLS_SIGN, then the QC), and the cofactor multiplication is most
+    of a call.  The point is immutable and a pure function of the bytes,
+    so a hit returns the same point.  (The reference computes it every
+    call: a departure of the code, not of the result.)"""
+    return _hash_to_g2_cached(bytes(msg))
+
+
+@functools.lru_cache(maxsize=4096)
+def _hash_to_g2_cached(msg: bytes):
+    return _hash_to_g2_uncached(msg)
+
+
+def _hash_to_g2_uncached(msg: bytes):
     counter = 0
     while True:
         h = hashlib.sha512(b"BLS_H2G2" + counter.to_bytes(4, "big")

@@ -60,21 +60,113 @@ def host_fq12_to_mont_limbs(x) -> np.ndarray:
 def miller_lines(p_g1, q_g2) -> np.ndarray:
     """Run the host Miller loop recording line values: (N_STEPS, 2, 12, 48)
     Montgomery limbs.  Slot 0 is the doubling line, slot 1 the addition
-    line (identity 1 on clear bits so the device body is uniform)."""
-    qt = host._twist(q_g2)
-    pf = host._cast_g1_fq12(p_g1)
-    one = host.FQ12_ONE
-    rpt = qt
-    out = np.zeros((N_STEPS, 2, 12, F.NLIMBS), np.int32)
-    for i, bit in enumerate(_BITS):
-        out[i, 0] = host_fq12_to_mont_limbs(host._linefunc(rpt, rpt, pf))
-        rpt = host._add(rpt, rpt, host._fq12)
-        if bit:
-            out[i, 1] = host_fq12_to_mont_limbs(host._linefunc(rpt, qt, pf))
-            rpt = host._add(rpt, qt, host._fq12)
-        else:
-            out[i, 1] = host_fq12_to_mont_limbs(one)
+    line (identity 1 on clear bits so the device body is uniform).
+
+    The reference walks the loop on the twisted point in Fq12, with an
+    Fq12 inversion in each line and each point step.  Here the loop
+    runs on the twist in Fq2 (``line_coeffs``, which depends on Q only)
+    and each line is then evaluated at P (``lines_at``): the same field
+    elements, so the same limbs (a departure of the code, not of the
+    result)."""
+    return lines_at(line_coeffs(q_g2), p_g1)
+
+
+# The twist (offchain/bls12381._twist) sends (x, y) over Fq2 to
+# (e(x) w^-2, e(y) w^-3), where e(a0 + a1 u) = (a0 - a1) + a1 w^6 is a
+# field embedding of Fq2 into Fq12 (e(u)^2 = -1).  A line through twisted
+# points with slope m = e(lam) w^-1 (lam the slope on the twist), taken
+# at P = (xP, yP) in Fq, is
+#     l = xP e(lam) w^-1 + e(y1 - lam x1) w^-3 - yP,
+# and a vertical one l = xP - e(x1) w^-2.  _EMBED[k][j] is the Fq12
+# element e(u^j) w^-k in Montgomery form (times R mod q).
+def _embed_consts():
+    w = tuple(1 if i == 1 else 0 for i in range(12))
+    w_inv = host.fq12_inv(w)
+    out = {}
+    for k in (1, 2, 3):
+        wk = host.FQ12_ONE
+        for _ in range(k):
+            wk = host.fq12_mul(wk, w_inv)
+        out[k] = []
+        for e in (host.FQ12_ONE,
+                  tuple(Q - 1 if i == 0 else (1 if i == 6 else 0)
+                        for i in range(12))):
+            out[k].append(tuple(c * F.R % Q
+                                for c in host.fq12_mul(e, wk)))
     return out
+
+
+_EMBED = _embed_consts()
+_ONE_MONT = b"".join((F.R_MOD_Q if i == 0 else 0).to_bytes(48, "little")
+                     for i in range(12))
+
+
+def _line_step(p1, p2):
+    """The line through p1 and p2 on the twist (tangent when equal) and
+    their sum, as offchain/bls12381._linefunc and _add take them in
+    Fq12: ``((0, lam, y1 - lam x1), p1 + p2)``, or ``((1, x1, None),
+    None)`` for a vertical line."""
+    x1, y1 = p1
+    x2, y2 = p2
+    if x1 != x2:
+        lam = host.fq2_mul(host.fq2_sub(y2, y1),
+                           host.fq2_inv(host.fq2_sub(x2, x1)))
+    elif y1 == y2:
+        lam = host.fq2_mul(host._fq2.scalar(host.fq2_mul(x1, x1), 3),
+                           host.fq2_inv(host._fq2.scalar(y1, 2)))
+    else:
+        return (1, x1, None), None
+    nu = host.fq2_sub(y1, host.fq2_mul(lam, x1))
+    nx = host.fq2_sub(host.fq2_sub(host.fq2_mul(lam, lam), x1), x2)
+    ny = host.fq2_sub(host.fq2_mul(lam, host.fq2_sub(x1, nx)), y1)
+    return (0, lam, nu), (nx, ny)
+
+
+def line_coeffs(q_g2) -> list:
+    """The Miller loop's lines for Q, before P: 2 x N_STEPS slots in
+    ``miller_lines``' order, each ``_line_step``'s line or None (the
+    addition slot of a clear bit, the identity)."""
+    rpt = q_g2
+    out = []
+    for bit in _BITS:
+        line, rpt = _line_step(rpt, rpt)
+        out.append(line)
+        if bit:
+            line, rpt = _line_step(rpt, q_g2)
+            out.append(line)
+        else:
+            out.append(None)
+    return out
+
+
+def lines_at(coeffs, p_g1) -> np.ndarray:
+    """``line_coeffs``' lines evaluated at the G1 point P: the (N_STEPS,
+    2, 12, 48) Montgomery limbs of ``miller_lines``."""
+    xp, yp = p_g1
+    yp_r = yp * F.R % Q
+    xp_r = xp * F.R % Q
+    e1, e2, e3 = _EMBED[1], _EMBED[2], _EMBED[3]
+    out = bytearray()
+    for line in coeffs:
+        if line is None:
+            out += _ONE_MONT
+            continue
+        kind, a, b = line
+        if kind == 0:
+            for k in range(12):
+                v = xp * (a[0] * e1[0][k] + a[1] * e1[1][k]) \
+                    + b[0] * e3[0][k] + b[1] * e3[1][k]
+                if k == 0:
+                    v -= yp_r
+                out += (v % Q).to_bytes(48, "little")
+        else:
+            for k in range(12):
+                v = -(a[0] * e2[0][k] + a[1] * e2[1][k])
+                if k == 0:
+                    v += xp_r
+                out += (v % Q).to_bytes(48, "little")
+    return np.frombuffer(bytes(out), np.uint8).astype(np.int32).reshape(
+        N_STEPS, 2, 12, F.NLIMBS)
 
 
 # Frobenius matrices: FROB[k][i] = (w^i)^(q^k) as a host Fq12 element, so

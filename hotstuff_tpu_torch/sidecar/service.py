@@ -283,6 +283,10 @@ class VerifyEngine:
         self._dedup_cache_hits = 0
         self._dedup_inbatch_hits = 0
         self._dedup_misses = 0
+        # The engine thread's wall in BLS requests, by OP_STATS path
+        # (OP_STATS ``bls_busy``, the port's own key): path -> [n, ms].
+        self._bls_busy: dict = {}
+        self._bls_busy_lock = threading.Lock()
         self._guard = guard
         self._chaos = chaos
         self._rewarm_fn = rewarm_fn
@@ -402,8 +406,9 @@ class VerifyEngine:
 
     def stats_snapshot(self) -> dict:
         """The OP_STATS reply body: the reference's sections (the XLA
-        ``compile`` tracker excepted), plus the device and the kernel
-        launch counts."""
+        ``compile`` tracker excepted), plus the device, the kernel
+        launch counts and, once a BLS request ran, the engine thread's
+        wall in BLS requests by path (``bls_busy``)."""
         from ..ops import kern
 
         snap = self._sched.stats.snapshot()
@@ -433,6 +438,11 @@ class VerifyEngine:
         snap["device"] = "host" if self._use_host else str(
             self._mesh or self.device)
         snap["kernels"] = dict(kern.LAUNCHES)
+        with self._bls_busy_lock:
+            if self._bls_busy:
+                snap["bls_busy"] = {
+                    path: {"n": n, "ms": round(ms, 3)}
+                    for path, (n, ms) in self._bls_busy.items()}
         if self._mesh is not None:
             snap["kernels_by_shard"] = {
                 str(k): dict(v) for k, v in self._mesh.launches.items()}
@@ -1054,10 +1064,12 @@ class VerifyEngine:
         since one poisoned shared entry would reject a valid certificate
         for every replica; a wedge also starts the reboot."""
         req = item.request
-        self._sched.stats.note_path(BLS_PATHS[type(req)])
+        path = BLS_PATHS[type(req)]
+        self._sched.stats.note_path(path)
         cache_key = self.bls_cache_key(req)
         key = self._bls_guard_key(req)
         payload, cacheable = None, False
+        t0 = monotonic()
         try:
             payload, cacheable = self._guarded(
                 key, lambda: self._execute_bls_inner(req, cache_key))
@@ -1067,6 +1079,11 @@ class VerifyEngine:
             self._begin_reboot()
         except Exception:
             log.exception("BLS request failed")
+        ms = (monotonic() - t0) * 1e3
+        with self._bls_busy_lock:
+            busy = self._bls_busy.setdefault(path, [0, 0.0])
+            busy[0] += 1
+            busy[1] += ms
         if cacheable and cache_key is not None and payload:
             self._cache_verdict(cache_key, bool(payload[0]))
         item.reply_fn(payload)

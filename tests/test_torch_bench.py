@@ -1,12 +1,13 @@
 """The port's headline bench (hotstuff_tpu_torch/bench.py) against the
 root bench.py, on the CPU at small sizes: the same triples, line shape,
 operation model and probe schemas, and the departures it makes (no
-degraded or cached line, the card's roofline rate, the fields not
-measured yet).  The root bench is imported as the oracle, and none of
-its functions that compile a JAX program is called: the port's
-verdicts are held to the pure-Python verifiers of both packages
-instead.  A plain per-signature verify of 8 rows takes ~1.2 s here,
-which sizes the device cases (G = 2, N = 8, one round)."""
+degraded or cached line, the card's roofline rate, no
+``msm_window_chunk``, the mesh fields in process).  The root bench is
+imported as the oracle, and none of its functions that compile a JAX
+program is called: the port's verdicts are held to the pure-Python
+verifiers of both packages instead.  A plain per-signature verify of 8
+rows takes ~1.2 s here, which sizes the device cases (G = 2, N = 8, one
+round)."""
 
 from __future__ import annotations
 
@@ -26,10 +27,9 @@ from hotstuff_tpu_torch.crypto import ref_ed25519 as pref
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The root bench's fields the port does not measure (ROADMAP.md Queue A;
-# msm_window_chunk for good: the port's K3 has no window-chunk constant).
-NOT_MEASURED = {"msm_window_chunk", "mesh_rlc", "committee_scale",
-                "cadence", "fleet"}
+# The root bench's field the port does not measure, for good: the port's
+# K3 has no window-chunk constant.
+NOT_MEASURED = {"msm_window_chunk"}
 
 
 def _ref_tree():
@@ -150,23 +150,31 @@ def test_no_cached_number_stands_in_for_a_run(tmp_records, capfd,
     assert codes == [1]
     assert line["value"] == 0 and line["killed"] == "SIGALRM"
     assert "error" in line and "source" not in line
+    # Nor a subprocess on a forced-host mesh: the mesh fields run in
+    # process (their probes keep the root bench's names).
     for name in ("emit_cached", "emit_cached_or_fail", "run_degraded",
                  "msm_chunk_sweep", "mesh_rlc_headline",
                  "committee_scale_headline", "cadence_headline",
-                 "fleet_headline_probe"):
+                 "_forced_host_mesh_headline"):
         assert hasattr(rbench, name) and not hasattr(pbench, name)
+    for name in ("mesh_rlc_probe", "committee_scale_probe",
+                 "cadence_probe", "fleet_headline_probe"):
+        assert hasattr(rbench, name) and hasattr(pbench, name)
 
 
 def test_run_line_keys_are_the_reference_less_five_plus_device(
         tmp_records, capsys, monkeypatch):
     """run() on the CPU with every stage stubbed: the final line's keys
-    are the root bench's, less the five fields not measured, plus
-    ``device``; a failed field is named and returned."""
+    are the root bench's, less the field not measured
+    (``msm_window_chunk``), plus ``device``; a failed field is named and
+    returned."""
     stub = {"ok": True}
     for name in ("rlc_compare", "roofline_headline", "viewchange_headline",
                  "sched_headline_probe", "chaos_headline_probe",
                  "trace_headline_probe", "surge_headline_probe",
-                 "users_headline_probe"):
+                 "users_headline_probe", "mesh_rlc_probe",
+                 "committee_scale_probe", "cadence_probe",
+                 "fleet_headline_probe"):
         monkeypatch.setattr(pbench, name, lambda *a, **k: dict(stub))
     monkeypatch.setattr(pbench, "guard_headline_probe",
                         lambda *a, **k: {"ok": False})

@@ -370,9 +370,8 @@ def _bench(pkg_harness, params):
     ("5 link:ab partition; 8 link:ab heal", {}),
 ])
 def test_fault_plan_preflight_reads_alike(plan, extra):
-    """The port refuses a plan at construction (no fault injector yet);
-    the copied pre-boot check still rejects what the reference rejects,
-    with the same message, for the slice that adds the injector."""
+    """The copied pre-boot check rejects what the reference rejects,
+    with the same message."""
     params = {"faults": 1, "nodes": 4, "rate": 1000, "tx_size": 512,
               "duration": 60, **extra}
     out = []
@@ -389,14 +388,23 @@ def test_fault_plan_preflight_reads_alike(plan, extra):
 
 
 def test_port_refuses_a_fault_plan_until_the_injector_is_ported():
+    """With the injector ported the port takes a plan as the reference
+    does: a valid one is parsed into the same events, a malformed one
+    raises the same BenchError."""
     from hotstuff_tpu_torch.harness.utils import BenchError
 
     params = {"faults": 0, "nodes": 4, "rate": 1000, "tx_size": 512,
-              "duration": 60, "fault_plan": "5 sidecar kill"}
+              "duration": 60, "fault_plan": "4 node:3 kill; 8 node:3 "
+                                            "restart; 11 sidecar wedge"}
+    ref = _bench("hotstuff_tpu.harness", params)
+    port = _bench("hotstuff_tpu_torch.harness", params)
+    assert [vars(e) for e in port.fault_plan.events] == \
+        [vars(e) for e in ref.fault_plan.events]
     with pytest.raises(BenchError) as exc:
-        _bench("hotstuff_tpu_torch.harness", params)
-    assert "harness/faults.py" in str(exc.value)
-    assert "ROADMAP" in str(exc.value)
+        port._check_fault_plan()      # a sidecar event, and no sidecar
+    assert "boots none" in str(exc.value)
+    params["tpu_sidecar"] = True
+    _bench("hotstuff_tpu_torch.harness", params)._check_fault_plan()
     params["fault_plan"] = "5 nonsense"
     with pytest.raises(BenchError) as exc:
         _bench("hotstuff_tpu_torch.harness", params)

@@ -78,7 +78,8 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "harness.utils", "chaos", "chaos.netem", "chaos.plan",
                  "chaos.recovery", "chaos.runner", "chaos.slo", "obs",
                  "obs.sampler", "obs.spans", "obs.trace", "bench",
-                 "crypto.txsign", "harness.loadgen"):
+                 "crypto.txsign", "harness.loadgen", "harness.faults",
+                 "harness.plot", "harness.remote", "harness.instance"):
         assert f"hotstuff_tpu_torch.{name}" in mods
     proc = _run(_CHECK.format(repo=REPO, mods=mods))
     assert proc.returncode == 0, proc.stderr

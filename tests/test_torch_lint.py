@@ -4,9 +4,10 @@ finding, and the port carries the reference's ``# graftlint:``
 annotations, line for line, in the files that mirror it.  AST and regex
 only: nothing here imports a checked module.
 
-The checkers' targets that the port lacks, and why:
+Every default target of the JAX package has its counterpart in the
+port (``threads`` scans ``harness/faults.py`` too).  Where the names
+differ:
 
-- ``threads``: ``harness/faults.py`` (not ported yet, ROADMAP.md Queue A).
 - ``padshape``, ``hotpath``: the JAX package's ``ops/kern`` Pallas
   modules have counterparts of other names (``ops/kern/*.py`` wrappers
   over ``csrc/``), scanned under the same directory target.
@@ -29,23 +30,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKERS = ("guardlint", "threads", "sockets", "tenantlint", "obsspan",
             "padshape", "hotpath", "ingress", "taint")
 
-# Targets of the JAX package the port has no file for yet.
-NOT_PORTED = {"hotstuff_tpu_torch/harness/faults.py"}
-
-
 def _port_targets(targets) -> tuple:
     """The port's counterpart of each default target (C++ targets stay
-    as they are); a missing counterpart must be one of NOT_PORTED."""
+    as they are); every one must exist."""
     out = []
     for t in targets:
         if not t.startswith("hotstuff_tpu/"):
             out.append(t)
             continue
         p = "hotstuff_tpu_torch/" + t[len("hotstuff_tpu/"):]
-        if glob.glob(os.path.join(REPO, p)):
-            out.append(p)
-        else:
-            assert p in NOT_PORTED, f"{t} has no counterpart {p}"
+        assert glob.glob(os.path.join(REPO, p)), \
+            f"{t} has no counterpart {p}"
+        out.append(p)
     return tuple(out)
 
 
@@ -60,14 +56,17 @@ def test_checker_reports_nothing_on_the_port(name):
 
 
 def test_new_modules_are_under_their_checkers():
-    """The modules this slice added are targets of the checkers that scan
-    their reference twins (ingress: loadgen; taint: txsign)."""
-    from hotstuff_tpu.analysis import ingress, taint
+    """Ported modules are targets of the checkers that scan their
+    reference twins (ingress: loadgen; taint: txsign; threads: the fault
+    injector)."""
+    from hotstuff_tpu.analysis import ingress, taint, threads
 
     assert "hotstuff_tpu_torch/harness/loadgen.py" in \
         _port_targets(ingress.DEFAULT_TARGETS)
     assert "hotstuff_tpu_torch/crypto/txsign.py" in \
         _port_targets(taint.PY_TARGETS)
+    assert "hotstuff_tpu_torch/harness/faults.py" in \
+        _port_targets(threads.DEFAULT_TARGETS)
 
 
 def _read(rel: str) -> str:
