@@ -16,6 +16,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
      their plain PyTorch versions on the card, require exact equality,
      and time both (the kernel also as launches replayed from a CUDA
      graph, which leaves out the host's overhead between calls);
+     point_ladder at 1024 rows (ladder and comb), batch 1 (comb and
+     Horner), 3 rows (the committee's per-signature ladder and comb),
+     128 rows (a mesh shard of 1024 over 8) and on a table whose limbs
+     are all 511, each beside its bounds in operations, in warp
+     shuffles (cuobjdump's count per loop depth times the iterations)
+     and, up to 132 rows, on one SM;
   5. serve the main path through the port's verify sidecar on the card:
      QC verifies of 67 votes from a 100-key committee (the RLC program),
      a QC with a forged vote and a non-canonical S (RLC with bisection),
@@ -215,11 +221,15 @@ PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # and a carry step as three per limb (mask, shift, add).
 OPS_CARRY_STEP = 3 * 32
 OPS_FIELD_MUL = 32 * 32 + 32 + 4 * OPS_CARRY_STEP   # products, x38 fold
+# A squaring: the 528 symmetric products, the doubling and the fold of
+# each coefficient (the same integers as the multiply's).
+OPS_FIELD_SQR = 528 + 32 + 32 + 4 * OPS_CARRY_STEP
 OPS_FIELD_ADD = 32 + OPS_CARRY_STEP
 OPS_FIELD_SUB = 2 * 32 + 2 * OPS_CARRY_STEP
 OPS_TO_CACHED = OPS_FIELD_MUL + OPS_FIELD_ADD + OPS_FIELD_SUB
 OPS_ADD_CACHED = 8 * OPS_FIELD_MUL + 4 * OPS_FIELD_ADD + 3 * OPS_FIELD_SUB
-OPS_DBL = 8 * OPS_FIELD_MUL + 3 * OPS_FIELD_ADD + 5 * OPS_FIELD_SUB
+OPS_DBL = (4 * OPS_FIELD_SQR + 4 * OPS_FIELD_MUL + 3 * OPS_FIELD_ADD
+           + 5 * OPS_FIELD_SUB)
 OPS_DBL_NO_T = OPS_DBL - OPS_FIELD_MUL
 OPS_TREE_NODE = OPS_TO_CACHED + OPS_ADD_CACHED
 OPS_MONT_ROW = (32 * 32 + 528 + 32 * 32                # T, m, m*L
@@ -236,10 +246,12 @@ OPS_RLC_REDUCE_ROW = (3 * 36 + OPS_MONT_ROW + 4 * OPS_COND_SUB
 # canonical: two 32-limb ripples (add, mask, shift), the x38 adds, two
 # borrow chains (subtract twice, compare, shift-add) and the select.
 OPS_CANONICAL = 2 * 3 * 32 + 2 + 2 * 4 * 32 + 32
-# decompress: 275 multiplies (251 squarings and 11 multiplies in the
-# pow chain), one add, three subtractions and four canonical forms.
-OPS_DECOMPRESS_ROW = (275 * OPS_FIELD_MUL + OPS_FIELD_ADD
-                      + 3 * OPS_FIELD_SUB + 4 * OPS_CANONICAL)
+# decompress: 255 squarings (251 of them in the pow chain) and 20
+# multiplies (11 in the pow chain), one add, three subtractions and four
+# canonical forms.
+OPS_DECOMPRESS_ROW = (255 * OPS_FIELD_SQR + 20 * OPS_FIELD_MUL
+                      + OPS_FIELD_ADD + 3 * OPS_FIELD_SUB
+                      + 4 * OPS_CANONICAL)
 # point_multiples: to_cached(P) and 14 additions (extended output).
 OPS_MULTIPLES_ROW = OPS_TO_CACHED + 14 * OPS_ADD_CACHED
 
@@ -301,10 +313,37 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sass_shuffles() -> dict:
-    """Static count of warp-shuffle (SHFL) instructions in each kernel's
-    machine code, from cuobjdump on the built library; empty when the
-    toolkit has no cuobjdump."""
+def kernel_name(mangled: str) -> str | None:
+    """The kernel's name in a mangled symbol, with its integer and bool
+    template arguments (``point_ladder_kernel<4>``); None when
+    no part of it names a kernel."""
+    import re
+
+    # The mangled name's parts are length-prefixed, and the prefix may
+    # follow digits of an anonymous namespace's hash: take the part that
+    # ends in _kernel and whose length a tail of the digits before it
+    # gives.
+    for m in re.finditer(r"_kernel", mangled):
+        end = m.end()
+        for d in re.finditer(r"\d+", mangled[:m.start()]):
+            digits, start = d.group(), d.end()
+            if any(int(digits[i:]) == end - start
+                   for i in range(len(digits))):
+                name = mangled[start:end]
+                targs = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
+                if targs:
+                    name += "<" + ",".join(
+                        re.findall(r"L[ib](\d+)E", targs.group(1))) + ">"
+                return name
+    return None
+
+
+def sass_shuffles() -> tuple[dict, dict]:
+    """Warp-shuffle (SHFL) instructions in each kernel's machine code,
+    from cuobjdump on the built library: the static count, and the count
+    at each loop depth (a loop being the span from a backward branch's
+    target to the branch).  Both empty when the toolkit has no
+    cuobjdump."""
     import re
 
     from hotstuff_tpu_torch.ops.kern import build
@@ -312,25 +351,81 @@ def sass_shuffles() -> dict:
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     lib = build.BUILD_ROOT / build.source_hash() / build.LIB_NAME
     if not os.path.exists(tool):
-        return {}
+        return {}, {}
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True, timeout=120)
-    counts: dict = {}
+    code: dict = {}   # kernel -> [(address, instruction or label)]
     name = None
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            # The mangled name's parts are length-prefixed: take the
-            # part of each length that names a kernel.
-            name = None
-            for m in re.finditer(r"\d+", line):
-                part = line[m.end():m.end() + int(m.group())]
-                if part.endswith("_kernel"):
-                    name = part
+            name = kernel_name(line)
             if name:
-                counts[name] = 0
-        elif name and "SHFL" in line:
-            counts[name] += 1
-    return counts
+                code[name] = []
+            continue
+        if not name:
+            continue
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if label:
+            code[name].append((None, label.group(1)))
+        elif ins:
+            code[name].append((int(ins.group(1), 16), ins.group(2)))
+    counts, depths = {}, {}
+    for name, lines in code.items():
+        where, addr = {}, None
+        for a, text in reversed(lines):   # a label sits at the next address
+            if a is None:
+                where[text] = addr
+            else:
+                addr = a
+        loops = []
+        for a, text in lines:
+            if a is None or not re.search(r"\bBRA\b", text):
+                continue
+            m = re.search(r"\((\.L_x_\d+)\)", text)
+            h = re.search(r"\b0x([0-9a-f]+)\s*$", text)
+            target = (where.get(m.group(1)) if m else
+                      int(h.group(1), 16) if h else None)
+            if target is not None and target < a:
+                loops.append((target, a))
+        by_depth: list = []
+        for a, text in lines:
+            if a is not None and "SHFL" in text:
+                d = sum(lo <= a <= hi for lo, hi in loops)
+                by_depth += [0] * (d + 1 - len(by_depth))
+                by_depth[d] += 1
+        counts[name] = sum(by_depth)
+        depths[name] = by_depth
+    return counts, depths
+
+
+def ptxas_report(log: str) -> dict:
+    """Each kernel's registers, stack frame and spill bytes from
+    ptxas's -v report in build.log."""
+    import re
+
+    report: dict = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([A-Za-z0-9_]+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            if name:
+                report.setdefault(name, {})
+            continue
+        if not name:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            report[name].update(stack=int(m.group(1)),
+                                spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    return report
 
 
 def time_ms(fn, iters: int) -> float:
@@ -382,7 +477,7 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
-def kernel_phase(dev, rng, shuffles):
+def kernel_phase(dev, rng, shuffles, depths):
     """Phases 3 and 4: each kernel beside its plain version, exact."""
     import numpy as np
     import torch
@@ -563,7 +658,10 @@ def kernel_phase(dev, rng, shuffles):
            (mpts, False, False), b * pt_bytes * (1 + 16),
            b * OPS_MULTIPLES_ROW, 20)
 
-    def ladder_case(table, digits, ndbl):
+    def ladder_case(label, table, digits, ndbl):
+        """point_ladder at one shape, held exactly to its plain version
+        and timed, beside the bounds.  The plain version (~1 s at ndbl 4)
+        is timed once, by the call that the kernel is held to."""
         # Bytes: the table entries this run's digits select (each once),
         # the digits and the output.
         bt, j = table.shape[:2]
@@ -575,30 +673,85 @@ def kernel_phase(dev, rng, shuffles):
         key = ((r_idx[:, None] * j + s_idx[None, :]) * table.shape[2]
                + digits.long())
         entries = int(torch.unique(key).numel())
-        return (f"table {tuple(table.shape)}, digits {tuple(digits.shape)}",
-                PC.point_ladder, PC.point_ladder_plain, (table, digits, ndbl),
-                entries * pt_bytes + digits.numel() * 4 + rows_ * pt_bytes,
-                rows_ * ops_ladder_row(steps, ndbl), 10)
+        args = (table, digits, ndbl)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = PC.point_ladder_plain(*args)
+        end.record()
+        got = PC.point_ladder(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if err != 0:
+            fail(f"point_ladder {label} differs from its plain version "
+                 f"(max abs err {err})")
+        b_ms, b_by = bound_ms(
+            entries * pt_bytes + digits.numel() * 4 + rows_ * pt_bytes,
+            rows_ * ops_ladder_row(steps, ndbl))
+        fn = lambda: PC.point_ladder(*args)  # noqa: E731
+        out = dict(max_abs_err=err, ms=time_ms(fn, 10),
+                   graph_ms=graph_ms(fn, 10), plain_ms=start.elapsed_time(end),
+                   bound_ms=b_ms, bound_by=b_by, shfl_bound_ms=None)
+        # One warp a row; its loops are the steps and, inside them, the
+        # ndbl doublings of a step.
+        depth = depths.get(f"point_ladder_kernel<{ndbl}>")
+        if depth:
+            per_warp = sum(n * t for n, t in zip(
+                depth, (1, steps, steps * ndbl)))
+            out["shuffles_per_warp"] = per_warp
+            out["shfl_bound_ms"] = (rows_ * per_warp
+                                    / PEAK_WARP_SHUFFLES_PER_S * 1e3)
+        if rows_ <= 132:
+            # Each row a chain of dependent steps on one warp: its
+            # operations at one SM's rate.
+            out["chain_bound_ms"] = (ops_ladder_row(steps, ndbl)
+                                     / PEAK_SM_INT32_OPS_PER_S * 1e3)
+        print(f"point_ladder {label}, table {tuple(table.shape)}, digits "
+              f"{tuple(digits.shape)}: exact; {out['ms']:.6f} ms a call "
+              f"from Python, {out['graph_ms']:.6f} ms in a CUDA graph; plain "
+              f"{out['plain_ms']:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
+              f"{out.get('shuffles_per_warp')} warp shuffles a warp, shuffle "
+              f"bound {out['shfl_bound_ms']} ms, chain bound on one SM "
+              f"{out.get('chain_bound_ms')} ms", flush=True)
+        return out
 
-    # The per-signature ladder at 1024 rows: cached tables of -A.
+    # The per-signature ladder at 1024 rows: cached tables of -A; the
+    # comb at 1024 rows and at batch 1; Horner at batch 1; the
+    # committee's 3 votes (below RLC_MIN_LAUNCH, the per-signature
+    # program); a mesh shard of a 1024-signature batch over 8; and a
+    # table whose limbs are all 511, the top of the weak form.
     b = 1024
     ltable = PC.point_multiples(pts[:b].contiguous(), cached=True,
                                 negate=True).unsqueeze(1)
     k_digits = torch.from_numpy(
         rng.integers(0, 16, (b, 64)).astype(np.int32)).to(dev)
-    record("point_ladder", chain_src, rep1,
-           *ladder_case(ltable, k_digits, 4))
     comb = E.comb_table_on(dev).unsqueeze(0)
     s_digits = torch.from_numpy(
         rng.integers(0, 256, (b, 32)).astype(np.int32)).to(dev)
+    main = ladder_case("ladder1024", ltable, k_digits, 4)
+    rows.append(dict(name="point_ladder", route="cuda",
+                     shape=f"table {tuple(ltable.shape)}, digits "
+                           f"{tuple(k_digits.shape)}",
+                     source=chain_src, replaces=rep1, library_ms=None,
+                     **main))
+    full = torch.full((3, 1, 16, 4, 32), 511, dtype=torch.int32, device=dev)
     for label, case in (
-            ("comb1024", ladder_case(comb, s_digits, 0)),
-            ("comb1", ladder_case(comb, s_digits[:1].contiguous(), 0)),
-            ("horner1", ladder_case(
-                E.to_cached(pts[:64]).reshape(1, 64, 1, 4, 32),
-                torch.zeros((1, 64), dtype=torch.int32, device=dev), 4))):
+            ("comb1024", (comb, s_digits, 0)),
+            ("comb1", (comb, s_digits[:1].contiguous(), 0)),
+            ("horner1", (E.to_cached(pts[:64]).reshape(1, 64, 1, 4, 32),
+                         torch.zeros((1, 64), dtype=torch.int32,
+                                     device=dev), 4)),
+            ("rows3", (ltable[:3].contiguous(), k_digits[:3].contiguous(),
+                       4)),
+            ("comb3", (comb, s_digits[:3].contiguous(), 0)),
+            ("rows128", (ltable[:128].contiguous(),
+                         k_digits[:128].contiguous(), 4)),
+            ("comb128", (comb, s_digits[:128].contiguous(), 0)),
+            ("all511", (full, k_digits[:3].contiguous(), 4)),
+            ("all511_comb", (full, s_digits[:3, :16].contiguous() % 16,
+                             0))):
         rows[-1].update({f"{label}_{k}": v for k, v in
-                         measure("point_ladder", *case).items()})
+                         ladder_case(label, *case).items()})
     return rows
 
 
@@ -3219,16 +3372,37 @@ class HostLoad(threading.Thread):
                 "over_s": round(dt, 3)}
 
 
+# The consensus core's event kinds (native/src/consensus/core.hpp
+# CoreEvent::Kind) and message kinds (messages.hpp ConsensusMessage::Kind),
+# in enum order.  The node's SLOW event line prints both numbers, the
+# message kind also for events that carry no message.
+CORE_EVENT_KINDS = ("kMessage", "kLoopback", "kVerdict", "kTcVerdict")
+CONSENSUS_MESSAGE_KINDS = ("kPropose", "kVote", "kTimeout", "kTC",
+                           "kSyncRequest")
+
+
+def slow_event_label(kind: int, msg_kind: int) -> str:
+    """A SLOW event's label: its event kind by name, and for a kMessage
+    the kind of the message it carried."""
+    def name(names, i):
+        return names[i] if 0 <= i < len(names) else str(i)
+
+    label = name(CORE_EVENT_KINDS, kind)
+    if kind == 0:
+        label += " " + name(CONSENSUS_MESSAGE_KINDS, msg_kind)
+    return label
+
+
 def committee_diagnostics(node_logs: dict, client_logs: dict) -> dict:
     """What the replicas and clients logged, in counts: per replica the
     blocks it proposed with a payload, the digests they carried and the
     most in one block, the payload blocks it committed, the batches its
     mempool sealed, its view timeouts and TCs, its store's WAL
-    compactions, its consensus events slower than 500 ms by event and
-    message kind (count, longest ms), its other WARN and ERROR lines by
-    kind (digits dropped), and its last METRICS line; per client the
-    transactions it reports sent (its last running total) and its WARN
-    lines by kind."""
+    compactions, its consensus events slower than 500 ms by event kind
+    and, for a message, its kind (``slow_event_label``; count, longest
+    ms), its other WARN and ERROR lines by kind (digits dropped), and
+    its last METRICS line; per client the transactions it reports sent
+    (its last running total) and its WARN lines by kind."""
     import re
 
     def kinds(text):
@@ -3249,11 +3423,12 @@ def committee_diagnostics(node_logs: dict, client_logs: dict) -> dict:
         for r in re.findall(r"Created B(\d+) -> ", text):
             per_block[r] = per_block.get(r, 0) + 1
         slow: dict = {}
-        for kind, ms in re.findall(
-                r"SLOW event (kind=-?\d+ msg_kind=-?\d+) took (\d+) ms",
+        for kind, msg_kind, ms in re.findall(
+                r"SLOW event kind=(-?\d+) msg_kind=(-?\d+) took (\d+) ms",
                 text):
-            n, top = slow.get(kind, (0, 0))
-            slow[kind] = (n + 1, max(top, int(ms)))
+            label = slow_event_label(int(kind), int(msg_kind))
+            n, top = slow.get(label, (0, 0))
+            slow[label] = (n + 1, max(top, int(ms)))
         nodes[name] = {
             "proposed_blocks": blocks,
             "proposed_digests": sum(per_block.values()),
@@ -3849,18 +4024,28 @@ def main() -> int:
     pieces_build = start_tower_pieces_build()
     build.load()
     print(f"kernel build and load: {time.monotonic() - t0:.3f} s "
-          f"(nvcc wall {build.build_seconds})", flush=True)
+          f"(nvcc wall {build.build_seconds}); sources "
+          f"{build.source_hash()}", flush=True)
     for line in build.build_log().splitlines():
         if ("registers" in line or "spill" in line or line.startswith("==")
                 or "entry function" in line):
             print("  ptxas:", line.strip(), flush=True)
 
-    shuffles = sass_shuffles()
+    # point_ladder's kernels must keep every value in registers.
+    for name, rep in sorted(ptxas_report(build.build_log()).items()):
+        if not name.startswith("point_ladder"):
+            continue
+        print(f"point_ladder kernel {name}: {rep}", flush=True)
+        if (rep.get("stack") or rep.get("spill_stores")
+                or rep.get("spill_loads")):
+            fail(f"{name} spills or uses a stack frame: {rep}")
+    shuffles, depths = sass_shuffles()
     print(f"warp shuffles in each kernel's machine code (cuobjdump): "
-          f"{shuffles or 'not measured'}", flush=True)
+          f"{shuffles or 'not measured'}; by loop depth: "
+          f"{depths or 'not measured'}", flush=True)
 
     rng = np.random.default_rng(20261017)
-    rows = kernel_phase(dev, rng, shuffles)
+    rows = kernel_phase(dev, rng, shuffles, depths)
 
     from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
 

@@ -106,26 +106,4 @@ __device__ __forceinline__ Pt add_cached(const Pt& p, const Pt& q, int lane) {
   return r;
 }
 
-// Doubling (dbl-2008-hwcd, a = -1), op for op the reference's dbl_t:
-// 4 squarings and 4 multiplies.  With with_t false the T multiply is
-// skipped and T is left 0, which is legal only when a doubling, which
-// never reads T, comes next.
-__device__ __forceinline__ Pt dbl(const Pt& p, bool with_t, int lane) {
-  int a = f_mul(p.c[0], p.c[0], lane);
-  int b = f_mul(p.c[1], p.c[1], lane);
-  int zz = f_mul(p.c[2], p.c[2], lane);
-  int c = f_add(zz, zz, lane);
-  int s = f_add(p.c[0], p.c[1], lane);
-  int e = f_sub(f_sub(f_mul(s, s, lane), a, lane), b, lane);  // 2*X1*Y1
-  int g = f_sub(b, a, lane);
-  int f = f_sub(g, c, lane);
-  int h = f_neg(f_add(a, b, lane), lane);
-  Pt r;
-  r.c[0] = f_mul(e, f, lane);
-  r.c[1] = f_mul(g, h, lane);
-  r.c[2] = f_mul(f, g, lane);
-  r.c[3] = with_t ? f_mul(e, h, lane) : 0;
-  return r;
-}
-
 }  // namespace hk

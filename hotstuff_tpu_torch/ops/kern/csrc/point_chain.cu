@@ -21,30 +21,37 @@
 //   point_multiples  the 16-entry table 0P..15P, extended (msm_table,
 //                    feeding K3) or cached (the ladder's table of -A).
 //
-// Every field operation is the shared field25519.cuh function with the
-// reference's op order and carry schedule, so the limbs equal the
-// reference's limb for limb.
+// Every field operation keeps the reference's op order and carry
+// schedule (field25519.cuh; field25519_lanes.cuh in point_ladder), so the
+// limbs equal the reference's limb for limb.
 //
-// Layout: one warp per element (one row), lane i holding limb i of every
-// coordinate, as in K1 and K3.  The alternative, one thread per element
-// with all 32 limbs of each operand in registers, needs no shuffles but
-// ~130 registers for a multiply alone and four coordinates plus
-// temporaries across a point formula, which would spill; the warp layout
-// keeps every chain in registers without spills and reuses the multiply
-// already held exact on the card.  ptxas (CUDA 12.8, sm_90a; the report
-// is in build.log): point_ladder 91 registers, decompress 143,
-// point_multiples 120, no spills, no stack.  What bounds it: a multiply is ~68 warp shuffles for ~36
-// int32 instructions per lane, and an SM issues one shuffle per clock
-// against 64 int32 operations, so these kernels are bound by shuffle
-// issue and by the latency of one warp's dependent chain (Horner at
-// batch 1: ~2,400 multiplies in a row), not by the int32 rate or by
-// bytes (the tables, 4 MB shared and 8 MB per-row at B = 1024, stay in
-// device memory and L2; each step reads one 512-byte cached point per
-// row).  Splitting a formula's four independent multiplies across warps,
-// or the thread-per-element layout at large batches, is later work.
+// Layout of decompress and point_multiples: one warp per element (one
+// row), lane i holding limb i of every coordinate, as in K1 and K3.  The
+// alternative, one thread per element with all 32 limbs of each operand
+// in registers, needs no shuffles but ~130 registers for a multiply alone
+// and four coordinates plus temporaries across a point formula, which
+// would spill.  ptxas (CUDA 12.8, sm_90a; the report is in build.log):
+// decompress 143 registers, point_multiples 120, no spills, no stack.
+// What bounds them: a multiply is ~68 warp shuffles for ~36 int32
+// instructions per lane, and an SM issues one shuffle per clock against
+// 64 int32 operations, so these kernels are bound by shuffle issue and by
+// the latency of one warp's dependent chain, not by the int32 rate or by
+// bytes.
+//
+// point_ladder (field25519_lanes.cuh) also runs a row on one warp, as
+// four groups of 8 lanes: the groups run each formula phase's four
+// independent multiplies at once (~10 multiplies a step on a row's
+// critical path instead of 37), and a lane holds 4 limbs, so one shuffled
+// word (two limbs) feeds several products (34 shuffles a multiply instead
+// of 68).  On the H100 (PERF.md) it is bound by instruction issue: a lane
+// spends about two instructions a product (the unpacking, the x38 scale,
+// the carries), one warp's stream at a few rows, the SMs' issue rate at
+// 1024.  Its tables (4 MB shared and 8 MB per-row at B = 1024) stay in
+// device memory and L2; each step reads one 512-byte cached point a row.
 #include <cuda_runtime.h>
 
 #include "field25519.cuh"
+#include "field25519_lanes.cuh"
 
 namespace {
 
@@ -153,34 +160,24 @@ __device__ __forceinline__ bool warp_row(long long rows, long long* row,
   return *row < rows;  // the whole warp leaves together
 }
 
+// point_ladder (field25519_lanes.cuh): one warp a row, two rows a block
+// of 64 threads; one kernel per ndbl (0: the combs; 4: the per-signature
+// ladder and Horner).
+template <int kNdbl>
 __global__ void point_ladder_kernel(const int* __restrict__ table,
                                     const int* __restrict__ digits,
                                     int* __restrict__ out, long long rows,
                                     int steps, int k, int per_row,
-                                    int per_step, int ndbl) {
+                                    int per_step) {
   long long row;
   int lane;
   if (!warp_row(rows, &row, &lane)) return;
+  const hk::lanes::Lane ln{lane / hk::lanes::G, lane % hk::lanes::G};
   const long long table_stride = static_cast<long long>(
       per_step ? steps : 1) * k * kPt;
-  const int* trow = table + (per_row ? row : 0) * table_stride;
-  const int* drow = digits + row * steps;
-  hk::Pt acc = identity(lane);
-#pragma unroll 1
-  for (int s = 0; s < steps; ++s) {
-    if (ndbl > 0) {
-#pragma unroll 1
-      for (int i = 1; i < ndbl; ++i) acc = hk::dbl(acc, false, lane);
-      acc = hk::dbl(acc, true, lane);  // the addition below reads T
-    }
-    // Digits are in [0, k) by construction; clamping keeps a bad one
-    // inside the table.
-    int d = min(max(drow[s], 0), k - 1);
-    const int* e = trow + (static_cast<long long>(per_step ? s : 0) * k + d)
-                              * kPt;
-    acc = hk::add_cached(acc, load_pt(e, lane), lane);
-  }
-  store_pt(out + row * kPt, acc, lane);
+  hk::lanes::ladder_row<kNdbl>(
+      table + (per_row ? row : 0) * table_stride, digits + row * steps,
+      out + row * kPt, steps, k, per_step, ln);
 }
 
 __global__ void decompress_kernel(const int* __restrict__ y_limbs,
@@ -252,14 +249,21 @@ unsigned blocks_for(long long rows) {
 }  // namespace
 
 // table (Bt, J, k, 4, 32) with Bt = rows if per_row else 1 and J = steps
-// if per_step else 1; digits (rows, steps) in [0, k); out (rows, 4, 32).
+// if per_step else 1; digits (rows, steps) in [0, k); out (rows, 4, 32);
+// ndbl 0 or 4.
 extern "C" int hk_point_ladder(const int* table, const int* digits, int* out,
                                long long rows, int steps, int k, int per_row,
                                int per_step, int ndbl, void* stream) {
+  if (ndbl != 0 && ndbl != 4) return static_cast<int>(cudaErrorInvalidValue);
   if (rows > 0) {
-    point_ladder_kernel<<<blocks_for(rows), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        table, digits, out, rows, steps, k, per_row, per_step, ndbl);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (ndbl) {
+      point_ladder_kernel<4><<<blocks_for(rows), kThreads, 0, s>>>(
+          table, digits, out, rows, steps, k, per_row, per_step);
+    } else {
+      point_ladder_kernel<0><<<blocks_for(rows), kThreads, 0, s>>>(
+          table, digits, out, rows, steps, k, per_row, per_step);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

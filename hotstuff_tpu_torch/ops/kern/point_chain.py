@@ -4,7 +4,10 @@ point-chain kernels (csrc/point_chain.cu), one launch per chain.
   point_ladder     acc <- [2^ndbl] acc + table[digit] over S steps from
                    the identity: the per-signature ladder, both combs and
                    Horner (ed25519.verify_prepared, comb_mul_base,
-                   msm_horner)
+                   msm_horner), on csrc/field25519_lanes.cuh: four
+                   8-lane groups of one warp run each formula phase's
+                   four independent multiplies at once, a lane holding
+                   4 limbs
   decompress       the whole of ed25519.decompress_t
   point_multiples  the 16-entry table 0P..15P, extended (msm_table) or
                    cached (the per-signature ladder's table of -A)
@@ -86,6 +89,8 @@ def point_ladder(table: torch.Tensor, digits: torch.Tensor,
                          f"got {ndbl}")
     if not on_card(table, digits):
         return point_ladder_plain(table, digits, ndbl)
+    if table.data_ptr() % 16:
+        raise ValueError("point_ladder table must be 16-byte aligned")
     out = torch.empty((b, 4, NLIMBS), dtype=torch.int32, device=table.device)
     if b == 0:
         return out

@@ -13,8 +13,10 @@ alone, in turn, on the main thread, ``--rounds`` times: prep ms, copy
 ms (pinned, synchronised), dispatch ms (until the call returns) and the
 wait for the card after it; then one round under torch.profiler, whose
 device events give the card's busy time a round, and the operators the
-call dispatches.  Prints every sample and one JSON line last, with the
-card's name and power limit.
+call dispatches; then, with --pipelined, the headline itself
+(``bench.device_throughput``: rounds pipelined as the bench runs them,
+best of its trials), in sigs/s.  Prints every sample and one JSON line
+last, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--pipelined", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import numpy as np
@@ -109,6 +112,9 @@ def main() -> int:
         "stage_sum_ms": round(sum(statistics.median(samples[k]) for k in
                                   ("prep_ms", "copy_ms", "dispatch_ms",
                                    "wait_ms")), 3)})
+    if args.pipelined:
+        out["pipelined_sigs_per_s"] = round(bench.device_throughput(
+            msgs, pks, sigs, device=dev), 1)
     print(json.dumps(out), flush=True)
     return 0
 

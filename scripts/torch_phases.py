@@ -8,6 +8,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases 1 (the card's name and power limit) and 2 (the kernels' build)
 always run first.  Then, in the order given:
 
+  4   the kernels beside their plain versions (point_ladder at each of
+      its shapes, with its bounds; ptxas's report and the shuffle
+      counts first);
   7   the BLS requests through the port's sidecar on the card (phase
       7's second half: verdicts held to the host reference, each
       request's latency and its host preparation by stage);
@@ -38,8 +41,8 @@ LEGS = {"14:ed25519": ("ed25519", False), "14:bls": ("bls", False),
 
 def main(argv) -> int:
     phases = list(argv)
-    if not phases or set(phases) - {"7", "14", "15", *LEGS}:
-        print("usage: torch_phases.py PHASE... (7, 14, 14:ed25519, "
+    if not phases or set(phases) - {"4", "7", "14", "15", *LEGS}:
+        print("usage: torch_phases.py PHASE... (4, 7, 14, 14:ed25519, "
               "14:bls, 14:faults or 15)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
@@ -63,8 +66,8 @@ def main(argv) -> int:
     torch.cuda.set_device(dev)
     t0 = time.monotonic()
     build.load()
-    print(f"kernel build and load: {time.monotonic() - t0:.3f} s",
-          flush=True)
+    print(f"kernel build and load: {time.monotonic() - t0:.3f} s; "
+          f"sources {build.source_hash()}", flush=True)
     work = os.path.join(REPO, "build", "chip", "harness")
     built = False
     runs = []
@@ -72,7 +75,18 @@ def main(argv) -> int:
         t0 = time.monotonic()
         print(f"== phase {phase}, run {len(runs) + 1}", flush=True)
         try:
-            if phase == "7":
+            if phase == "4":
+                import numpy as np
+
+                log = build.build_log()
+                for name, rep in sorted(smoke.ptxas_report(log).items()):
+                    print(f"ptxas {name}: {rep}", flush=True)
+                shuffles, depths = smoke.sass_shuffles()
+                print(f"shuffles {shuffles}; by loop depth {depths}",
+                      flush=True)
+                smoke.kernel_phase(dev, np.random.default_rng(20261017),
+                                   shuffles, depths)
+            elif phase == "7":
                 reqs, want = smoke.make_bls_requests()
                 smoke.bls_sidecar_phase(dev, reqs, want)
             elif phase == "14":

@@ -209,6 +209,28 @@ def test_point_ladder_equals_plain_on_card(card, rows, per_row, per_step):
         assert torch.equal(got, PC.point_ladder_plain(table, digits, ndbl))
 
 
+@pytest.mark.parametrize("rows", [1, 3, 5, 130])
+def test_point_ladder_shapes_equal_plain_on_card(card, rows):
+    """point_ladder at the committee's 3 rows, an odd row count (the
+    second warp of a block idle), past one row per SM, on shared,
+    per-step and all-511 tables; one launch, counted as point_ladder."""
+    rng = np.random.default_rng(rows + 40)
+    steps = 5
+    base = PC.point_multiples_plain(_multiples(rows, rng), cached=True,
+                                    negate=False)        # (rows, 16, 4, 32)
+    table = torch.stack([base.roll(s, dims=0) for s in range(steps)], dim=1)
+    digits = torch.from_numpy(
+        rng.integers(0, 16, (rows, steps)).astype(np.int32)).to(card)
+    for tab in (table[:, :1].contiguous().to(card),
+                table.contiguous().to(card),
+                torch.full((rows, 1, 16, 4, 32), 511, dtype=torch.int32,
+                           device=card)):
+        for ndbl in (4, 0):
+            got = _launched("point_ladder", lambda: PC.point_ladder(
+                tab, digits, ndbl))
+            assert torch.equal(got, PC.point_ladder_plain(tab, digits, ndbl))
+
+
 def test_point_chain_wrappers_reject_bad_inputs_on_card(card):
     pts = _multiples(2, np.random.default_rng(0)).to(card)
     table = PC.point_multiples_plain(pts, True, False).unsqueeze(1)
