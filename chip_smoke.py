@@ -428,6 +428,70 @@ def ptxas_report(log: str) -> dict:
     return report
 
 
+# The kernels on fq12_lanes.cuh's split step.
+LANE_KERNELS = ("final_exp_kernel", "fq12_hard_pow_kernel")
+
+
+def lane_kernel_report(log: str) -> dict:
+    """ptxas's report for each split-step kernel: its registers, stack
+    and spills, and the stack and spills of every device function
+    compiled into it (the lines after its entry, until the next)."""
+    import re
+
+    out: dict = {}
+    name = None
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([A-Za-z0-9_]+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            name = name if name in LANE_KERNELS else None
+            if name:
+                out[name] = {"functions": {}}
+            fn = None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"Function properties for ([A-Za-z0-9_]+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            rep = dict(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            if kernel_name(fn) == name:
+                out[name].update(rep)
+            else:
+                out[name]["functions"][fn] = rep
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def check_tower_registers(log: str) -> None:
+    """Phase 2: the split-step kernels' registers, spills and stack from
+    ptxas's report, and those of the device functions compiled into
+    them; a kernel or function that spills or uses a stack frame fails."""
+    report = lane_kernel_report(log)
+    for name in LANE_KERNELS:
+        rep = report.get(name)
+        if not rep or "registers" not in rep:
+            fail(f"{name} is not in ptxas's report")
+        fns = rep.pop("functions")
+        print(f"split-step kernel {name}: {rep}; {len(fns)} device "
+              f"functions", flush=True)
+        bad = {f: r for f, r in fns.items() if any(r.values())}
+        for f, r in sorted(fns.items()):
+            print(f"  {f}: {r}", flush=True)
+        if any(rep[k] for k in ("stack", "spill_stores", "spill_loads")) \
+                or bad:
+            fail(f"{name} or a function in it spills or uses a stack "
+                 f"frame: {rep} {bad}")
+
+
 def time_ms(fn, iters: int) -> float:
     """Mean ms per call on the card (CUDA events, after a warm-up)."""
     import torch
@@ -1015,17 +1079,20 @@ TC_LABEL = "TC of 67 votes over 67 digests"
 
 
 # The tower's pieces timed alone (phase 7): one Montgomery product of
-# fq381w.cuh as one thread's dependent chain, and each record of
-# fq12w.cuh's bilinear step on one block of the kernels' 160 threads,
-# each N times in a loop inside one launch, timed with CUDA events.  A
-# program of its own on the kernels' headers, built by nvcc in phase 2
-# beside the kernel library.
+# fq381w.cuh as one thread's dependent chain and split across a lane
+# group of fq12_lanes.cuh (W words a lane, W = 2, 3, 4), each record of
+# fq12w.cuh's bilinear step on one block of 160 threads, and the split
+# step of fq12_lanes.cuh for the cyclotomic square and the Karatsuba
+# product at each W (and W = 12: one product a thread, fqw::mont_mul) on
+# the block such a kernel launches, each N times in a loop inside one
+# launch, timed with CUDA events.  A program of its own on the kernels'
+# headers, built by nvcc in phase 2 beside the kernel library.
 TOWER_PROG_CAPACITY = 4096
 TOWER_PIECES_SOURCE = r"""
 #include <cstdio>
 #include <vector>
 #include <cuda_runtime.h>
-#include "fq12w.cuh"
+#include "fq12_lanes.cuh"
 
 __global__ void mont_loop(uint32_t* out, int n) {
   uint32_t a[12], b[12];
@@ -1037,6 +1104,24 @@ __global__ void mont_loop(uint32_t* out, int n) {
   b[11] &= 0x0fffffff;
   for (int r = 0; r < n; ++r) fqw::mont_mul(a, b, a);
   for (int i = 0; i < 12; ++i) out[threadIdx.x * 12 + i] = a[i];
+}
+
+template <int W>
+__global__ void split_loop(uint32_t* out, int n) {
+  constexpr int G = tl::Split<W>::kGroup, L = tl::Split<W>::kLanes;
+  const int l = static_cast<int>(threadIdx.x) % G;
+  uint32_t a[1][W], b[1][W];
+  for (int w = 0; w < W; ++w) {
+    a[0][w] = l < L ? fqw::kOne[W * l + w] ^ (threadIdx.x / G) : 0u;
+    b[0][w] = l < L ? fqw::kOne[W * l + w] + w : 0u;
+  }
+  if (l == L - 1) {
+    a[0][W - 1] &= 0x0fffffff;
+    b[0][W - 1] &= 0x0fffffff;
+  }
+  const tl::Group<G> g{l, (static_cast<int>(threadIdx.x) & 31) & ~(G - 1)};
+  for (int r = 0; r < n; ++r) tl::mont_split<W>(g, a, b, a);
+  for (int w = 0; w < W; ++w) out[threadIdx.x * W + w] = a[0][w];
 }
 
 __global__ void inv_loop(uint32_t* out, int n) {
@@ -1069,18 +1154,107 @@ __global__ void bilinear_loop(const int* prog, int len, int n,
   tw::tasks(144, [&](int i) { out[i] = x[i]; });
 }
 
+// The split step: a square (y = x) for kCyc, a product for kMul.
+template <int Op, int W, int WO>
+__global__ void step_loop(const int* prog, int len, int n, uint32_t* out) {
+  __shared__ __align__(16) uint32_t x[144], y[144],
+      prod[tw::kMaxProducts * 12];
+  __shared__ int sp[TOWER_PROG_CAPACITY];
+  tw::tasks(len, [&](int i) { sp[i] = prog[i]; });
+  tw::tasks(144, [&](int i) {
+    x[i] = fqw::kOne[i % 12] >> (i % 3);
+    y[i] = fqw::kOne[i % 12] >> (i % 5);
+  });
+  for (int r = 0; r < n; ++r) {
+    tl::step<Op, W, WO>(sp, x, Op == tw::kCyc ? x : y, x, prod);
+  }
+  tw::tasks(144, [&](int i) { out[i] = x[i]; });
+}
+
+static int* dprog;
+static uint32_t* dout;
+static int len;
+static const int n = 400;
+
+// The cyclotomic split step's stages alone, at the kernels' W and block:
+// 0 the operands (both formed in every lane of each product's group), 1
+// the operands and the products, 2 the outputs, 3 the two barriers.
+template <int Stage, int W, int WO>
+__global__ void stage_loop(const int* prog, int len, int n, uint32_t* out) {
+  using S = tw::Shape<tw::kCyc>;
+  constexpr int G = tl::Split<W>::kGroup;
+  constexpr int GO = tl::Split<WO>::kGroup;
+  __shared__ __align__(16) uint32_t x[144], prod[tw::kMaxProducts * 12];
+  __shared__ int sp[TOWER_PROG_CAPACITY];
+  tw::tasks(len, [&](int i) { sp[i] = prog[i]; });
+  tw::tasks(144, [&](int i) { x[i] = fqw::kOne[i % 12] >> (i % 3); });
+  const int* fa = tw::op_record(sp, tw::kCyc);
+  const int* fb = fa + S::k * S::la;
+  const int* fo = fb + S::k * S::lb;
+  const int* fi = fo + 12 * S::lo;
+  for (int r = 0; r < n; ++r) {
+    tl::groups<G>(S::k, [&](const tl::Group<G>& g, int k, bool keep) {
+      if (Stage > 1) return;
+      uint32_t a[1][W], b[1][W], p[1][W];
+      tl::operand<S::la, W, true>(g, fa + k * S::la, x, a);
+      tl::operand<S::lb, W, true>(g, fb + k * S::lb, x, b);
+      if (Stage == 1) {
+        tl::mont_split<W>(g, a, b, p);
+      } else {
+        for (int w = 0; w < W; ++w) p[0][w] = a[0][w] ^ b[0][w];
+      }
+      if (keep) tl::store<W>(g, p, prod + k * 12);
+    });
+    tl::groups<GO>(12, [&](const tl::Group<GO>& g, int j, bool keep) {
+      if (Stage != 2) return;
+      uint32_t o[1][WO];
+      tl::output<S::lo, S::li, WO>(g, fo + j * S::lo, fi + j * S::li,
+                                   prod, x, o);
+      if (keep) tl::store<WO>(g, o, x + j * 12);
+    });
+  }
+  tw::tasks(144, [&](int i) { out[i] = x[i] ^ prod[i]; });
+}
+
+template <int Stage, int W, int WO>
+static void stage_launch() {
+  stage_loop<Stage, W, WO><<<1, tl::kThreads>>>(dprog, len, n, dout);
+}
+
+static float time_launch(void (*launch)(), cudaEvent_t s, cudaEvent_t e) {
+  float ms;
+  launch();
+  cudaEventRecord(s);
+  launch();
+  cudaEventRecord(e);
+  cudaEventSynchronize(e);
+  cudaEventElapsedTime(&ms, s, e);
+  return ms;
+}
+
+
+template <int W>
+static void split_launch() { split_loop<W><<<1, 32>>>(dout, n); }
+
+template <int Op, int W, int WO>
+static void step_launch() {
+  // The block of a kernel on this split: 54 products' groups, whole warps.
+  constexpr int threads =
+      (tw::kMaxProducts * tl::Split<W>::kGroup + 31) / 32 * 32;
+  step_loop<Op, W, WO><<<1, threads < 224 ? 224 : threads>>>(dprog, len, n,
+                                                             dout);
+}
+
 int main(int argc, char** argv) {
   std::vector<int> prog;
   for (int i = 1; i < argc; ++i) prog.push_back(atoi(argv[i]));
-  int* dprog;
-  uint32_t* dout;
+  len = static_cast<int>(prog.size());
   cudaMalloc(&dprog, prog.size() * 4);
   cudaMemcpy(dprog, prog.data(), prog.size() * 4, cudaMemcpyHostToDevice);
   cudaMalloc(&dout, 1 << 16);
   cudaEvent_t s, e;
   cudaEventCreate(&s);
   cudaEventCreate(&e);
-  const int n = 400;
   float ms;
   mont_loop<<<1, 64>>>(dout, n);
   cudaEventRecord(s);
@@ -1089,6 +1263,12 @@ int main(int argc, char** argv) {
   cudaEventSynchronize(e);
   cudaEventElapsedTime(&ms, s, e);
   printf("mont_mul (one thread's chain): %.6f us\n", ms * 1e3 / n);
+  printf("mont_split W=2 (8 lanes): %.6f us\n",
+         time_launch(split_launch<2>, s, e) * 1e3 / n);
+  printf("mont_split W=3 (4 lanes): %.6f us\n",
+         time_launch(split_launch<3>, s, e) * 1e3 / n);
+  printf("mont_split W=4 (4 lanes): %.6f us\n",
+         time_launch(split_launch<4>, s, e) * 1e3 / n);
   const int n_inv = 100;
   inv_loop<<<1, 1>>>(dout, n_inv);
   cudaEventRecord(s);
@@ -1098,13 +1278,12 @@ int main(int argc, char** argv) {
   cudaEventElapsedTime(&ms, s, e);
   printf("inv_mont (one thread, binary extended Euclid): %.6f us\n",
          ms * 1e3 / n_inv);
-  void (*loops[tw::kOps])(const int*, int, int, uint32_t*) = {
+  void (*loops[7])(const int*, int, int, uint32_t*) = {
       bilinear_loop<0>, bilinear_loop<1>, bilinear_loop<2>, bilinear_loop<3>,
       bilinear_loop<4>, bilinear_loop<5>, bilinear_loop<6>};
-  const char* names[tw::kOps] = {"mul", "sqr", "line", "frob1", "frob2",
-                                 "inv6_abc", "inv6_norm"};
-  const int len = static_cast<int>(prog.size());
-  for (int op = 0; op < tw::kOps; ++op) {
+  const char* names[7] = {"mul", "sqr", "line", "frob1", "frob2",
+                          "inv6_abc", "inv6_norm"};
+  for (int op = 0; op < 7; ++op) {
     loops[op]<<<1, 160>>>(dprog, len, n, dout);
     cudaEventRecord(s);
     loops[op]<<<1, 160>>>(dprog, len, n, dout);
@@ -1112,6 +1291,34 @@ int main(int argc, char** argv) {
     cudaEventSynchronize(e);
     cudaEventElapsedTime(&ms, s, e);
     printf("bilinear %s: %.6f us\n", names[op], ms * 1e3 / n);
+  }
+  struct { const char* name; void (*launch)(); } steps[] = {
+      {"split step cyc W=2", step_launch<tw::kCyc, 2, 2>},
+      {"split step cyc W=3", step_launch<tw::kCyc, 3, 3>},
+      {"split step cyc W=4", step_launch<tw::kCyc, 4, 4>},
+      {"split step cyc W=12 (one product a thread)",
+       step_launch<tw::kCyc, 12, 12>},
+      {"split step cyc W=3, outputs W=1", step_launch<tw::kCyc, 3, 1>},
+      {"split step cyc W=3, outputs W=2", step_launch<tw::kCyc, 3, 2>},
+      {"split step cyc W=2, outputs W=1", step_launch<tw::kCyc, 2, 1>},
+      {"split step cyc W=2, outputs W=3", step_launch<tw::kCyc, 2, 3>},
+      {"split step mul W=2", step_launch<tw::kMul, 2, 2>},
+      {"split step mul W=3", step_launch<tw::kMul, 3, 3>},
+      {"split step mul W=4", step_launch<tw::kMul, 4, 4>},
+      {"split step mul W=12 (one product a thread)",
+       step_launch<tw::kMul, 12, 12>},
+      {"split step mul W=3, outputs W=1", step_launch<tw::kMul, 3, 1>},
+      {"split step mul W=3, outputs W=2", step_launch<tw::kMul, 3, 2>},
+      {"split step cyc W=3, operands alone", stage_launch<0, 3, 3>},
+      {"split step cyc W=3, operands and products", stage_launch<1, 3, 3>},
+      {"split step cyc W=2, operands and products", stage_launch<1, 2, 2>},
+      {"split step cyc, outputs alone W=1", stage_launch<2, 3, 1>},
+      {"split step cyc, outputs alone W=2", stage_launch<2, 3, 2>},
+      {"split step cyc, outputs alone W=3", stage_launch<2, 3, 3>},
+      {"split step cyc, outputs alone W=12", stage_launch<2, 3, 12>},
+      {"split step cyc, the two barriers alone", stage_launch<3, 3, 3>}};
+  for (const auto& st : steps) {
+    printf("%s: %.6f us\n", st.name, time_launch(st.launch, s, e) * 1e3 / n);
   }
   const cudaError_t err = cudaDeviceSynchronize();
   if (err != cudaSuccess) {
@@ -1183,41 +1390,55 @@ def ops_bilinear(op) -> int:
     return ops
 
 
-def ops_sqr(cyclotomic: bool) -> int:
-    """One squaring of the tower: the kernel's complex square (36 Fq
-    products), or, for the bound of the cyclotomic squaring that the
-    hard part's input allows (Granger and Scott, 18 Fq products), the
-    same record's count with 18 of its products taken out (its sums
-    kept)."""
-    from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
-
-    sqr = ops_bilinear(FT.OPS["sqr"])
-    return sqr - 18 * (OPS_W_MONT + OPS_W_NEG) if cyclotomic else sqr
+# A negated term on fq12_lanes.cuh's split step: one XOR a word (~v).
+OPS_W_FLIP = 12
 
 
-def ops_tower_pow(digits, width, cyclotomic=False) -> int:
+def ops_lane_step(op) -> int:
+    """int32 operations of one split step (fq12_lanes.cuh step) from the
+    record's matrices: per operand its terms (a column add a word, an
+    XOR a word for a negated one, the (q + 1) bias where any is
+    negated) and its carries; per product one Montgomery product; per
+    output its terms over the products and the input, the bias, its
+    carries and one reduce13."""
+    import numpy as np
+
+    ops = op.products * OPS_W_MONT
+    for m, per_form in ((op.ma, True), (op.mb, True), (op.mc, False),
+                        (op.mx, False)):
+        ops += (int((m != 0).sum()) * OPS_W_TERM
+                + int((m < 0).sum()) * OPS_W_FLIP
+                + int((m < 0).any(1).sum()) * OPS_W_TERM)
+        if per_form:
+            ops += m.shape[0] * OPS_W_CARRY
+    return ops + 12 * (OPS_W_CARRY + OPS_W_REDUCE)
+
+
+def ops_tower_pow(digits, width, sq: int, mul: int) -> int:
     """pow_digits: the table's 2^width - 2 products, width squarings
     per later digit, one product per later nonzero digit."""
-    from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
-
-    mul = ops_bilinear(FT.OPS["mul"])
     later = digits[1:]
     return (((1 << width) - 2 + sum(1 for d in later if d)) * mul
-            + width * len(later) * ops_sqr(cyclotomic))
+            + width * len(later) * sq)
 
 
-def ops_hard_pow(cyclotomic=False) -> int:
-    """fq12_hard_pow on one row: the x-chain of fq12w.cuh hard_pow_row,
-    its squarings counted as the kernel runs them (complex squares) or,
-    with ``cyclotomic``, as cyclotomic squares: the function's count on
-    its domain, which the kernel does not reach yet."""
+def ops_hard_pow(lanes: bool = True) -> int:
+    """fq12_hard_pow on one row: the x-chain, counted on the kernel's
+    algorithm (fq12_lanes.cuh: cyclotomic squares and Karatsuba products
+    on the split step, the Frobenius maps on fq12w.cuh's), or with
+    ``lanes`` false on the complex-square chain (complex squares and
+    products on fq12w.cuh's step), the count of the rows before."""
     from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
 
+    if lanes:
+        sq, mul = ops_lane_step(FT.OPS["cyc"]), ops_lane_step(FT.OPS["mul"])
+    else:
+        sq, mul = ops_bilinear(FT.OPS["sqr"]), ops_bilinear(FT.OPS["mul"])
     conj = 6 * OPS_W_NEG
-    return (ops_tower_pow(FT.E1_DIGITS, FT.E1_WIDTH, cyclotomic)
-            + 3 * ops_tower_pow(FT.X_DIGITS, 1, cyclotomic)
+    return (ops_tower_pow(FT.E1_DIGITS, FT.E1_WIDTH, sq, mul)
+            + 3 * ops_tower_pow(FT.X_DIGITS, 1, sq, mul)
             + ops_bilinear(FT.OPS["frob1"]) + ops_bilinear(FT.OPS["frob2"])
-            + 4 * ops_bilinear(FT.OPS["mul"]) + 2 * conj
+            + 4 * mul + 2 * conj
             + 24 * OPS_W_CONVERT)
 
 
@@ -1275,29 +1496,32 @@ def final_exp_norm(fs) -> int:
     return (f0 * f0 + f1 * f1) * pow(F381.R, -1, F381.Q) % F381.Q
 
 
-def ops_final_exp(fs, cyclotomic=False) -> int:
-    """final_exp on one row of (1, P, 12, 48) Miller values (fq12w.cuh
+def ops_final_exp(fs, lanes: bool = True) -> int:
+    """final_exp on one row of (1, P, 12, 48) Miller values (fq12_lanes.cuh
     final_exp_row), counted on its algorithm and this row's data: the P
     inputs' conversions, P - 1 products, the conjugation, the tower
     inverse (three products, the two Fq6-inverse records, fq2_inv: four
     Montgomery products, an add, the Euclid's steps on this row's norm,
     one product by R^3, a negation), the easy part's two products and
-    q^2 Frobenius map, the hard part's chain (its squarings as
-    ops_hard_pow counts them with ``cyclotomic``) and the output's
-    conversion."""
+    q^2 Frobenius map, the hard part's chain (as ops_hard_pow counts it
+    with ``lanes``) and the output's conversion.  The product stage and
+    the easy part's two products run on the split step, the tower
+    inverse on fq12w.cuh's; with ``lanes`` false, all on fq12w.cuh's
+    (the complex-square chain)."""
     from hotstuff_tpu_torch.ops.kern import fq12_tower as FT
 
     p = fs.shape[1]
-    mul = ops_bilinear(FT.OPS["mul"])
+    old = ops_bilinear(FT.OPS["mul"])
+    mul = ops_lane_step(FT.OPS["mul"]) if lanes else old
     halvings, subs, rounds = euclid_steps(final_exp_norm(fs))
     fq2_inv = (5 * OPS_W_MONT + 2 * 12 * 3 + 12 + OPS_W_SUB_MOD
                + halvings * OPS_W_HALF + subs * OPS_W_SUB_STEP
                + rounds * OPS_W_ROUND)
-    return (12 * p * OPS_W_CONVERT + (p - 1) * mul + 6 * OPS_W_NEG
-            + 5 * mul + ops_bilinear(FT.OPS["inv6_abc"])
+    return (12 * p * OPS_W_CONVERT + (p + 1) * mul + 6 * OPS_W_NEG
+            + 3 * old + ops_bilinear(FT.OPS["inv6_abc"])
             + ops_bilinear(FT.OPS["inv6_norm"]) + fq2_inv
             + ops_bilinear(FT.OPS["frob2"])
-            + ops_hard_pow(cyclotomic) - 12 * OPS_W_CONVERT)
+            + ops_hard_pow(lanes) - 12 * OPS_W_CONVERT)
 
 
 def ops_miller_rows(lines) -> tuple:
@@ -1422,7 +1646,8 @@ def bls_kernel_phase(dev, rng):
           f"one: exact; branches of the plain version {taken}", flush=True)
 
     # fq12_hard_pow at batch 1 (the check's shape) on an easy-part output
-    # f^((q^6 - 1)(q^2 + 1)), its domain (the cyclotomic subgroup).
+    # f^((q^6 - 1)(q^2 + 1)), its domain (the cyclotomic subgroup), on
+    # final_exp's chain (fq12_lanes.cuh).
     f = fq12(1)
     f1 = B.fq12_mul(B.fq12_frobenius(f, 6), B.fq12_inv(f))
     f2 = B.fq12_mul(B.fq12_frobenius(f1, 2), f1).contiguous()
@@ -1433,51 +1658,54 @@ def bls_kernel_phase(dev, rng):
            2 * FQ12_BYTES + prog_bytes + 24 * 48
            + 4 * (len(FT.E1_DIGITS) + len(FT.X_DIGITS)),
            hard, hard, 10)
-    cyc = ops_hard_pow(cyclotomic=True)
-    rows[-1]["cyclotomic_bound_ms"] = cyc / PEAK_INT32_OPS_PER_S * 1e3
-    rows[-1]["cyclotomic_chain_bound_ms"] = (
-        cyc / PEAK_SM_INT32_OPS_PER_S * 1e3)
-    print(f"fq12_hard_pow with cyclotomic squares (18 Fq products each, "
-          f"not the kernel's algorithm): bound "
-          f"{rows[-1]['cyclotomic_bound_ms']:.6f} ms, chain bound on one "
-          f"SM {rows[-1]['cyclotomic_chain_bound_ms']:.6f} ms", flush=True)
+    old = ops_hard_pow(lanes=False)
+    rows[-1]["complex_square_bound_ms"] = old / PEAK_INT32_OPS_PER_S * 1e3
+    rows[-1]["complex_square_chain_bound_ms"] = (
+        old / PEAK_SM_INT32_OPS_PER_S * 1e3)
+    print(f"fq12_hard_pow counted on the complex-square chain "
+          f"(fq12w.cuh's step): bound "
+          f"{rows[-1]['complex_square_bound_ms']:.6f} ms, chain bound on "
+          f"one SM {rows[-1]['complex_square_chain_bound_ms']:.6f} ms",
+          flush=True)
 
     # final_exp, the check's second launch, on real Miller values (the
-    # lines' miller_accumulate) at the QC's P = 2 (a statement that does
-    # not hold: verdict false) and the TC's P = 68 (17 copies of a valid
-    # 4-pairing statement: true); bounds counted on its algorithm and this
-    # data (the binary Euclid's steps on each row's norm); beside them,
-    # the bounds with the hard part's squarings as cyclotomic squares, as
-    # for fq12_hard_pow.
+    # lines' miller_accumulate): the QC's P = 2 (a statement that does
+    # not hold: verdict false), the mesh lead's P = 4 (phase 11's four
+    # shards: the valid 4-pairing statement) and 8 (the bench's eight:
+    # it twice), the TC's P = 68 (17 copies: true); bounds counted on its
+    # algorithm and this data (the binary Euclid's steps on each row's
+    # norm); beside them, the count on the complex-square chain.
     consts_bytes = 24 * 48 + 4 * (len(FT.E1_DIGITS) + len(FT.X_DIGITS))
-    for n, verdict in ((2, False), (68, True)):
+    for n, verdict in ((2, False), (4, True), (8, True), (68, True)):
         lines = lines4.repeat(n // 4 + 1, 1, 1, 1, 1)[-n:].contiguous()
         fs = FT.miller_accumulate(lines)[None].contiguous()
         ops = ops_final_exp(fs)
         nbytes = (n + 1) * FQ12_BYTES + 4 + prog_bytes + consts_bytes
         args = (f"(1, {n}, 12, 48), real Miller values", FT.final_exp,
                 FT.final_exp_plain, (fs,), nbytes, ops, ops, 10)
-        pre = "" if n == 2 else "tc68_"
+        pre = "" if n == 2 else "tc68_" if n == 68 else f"p{n}_"
         if n == 2:
             record("final_exp", TOWER_SOURCE, *args)
         else:
             rows[-1].update({f"{pre}{k}": v for k, v in
                              measure("final_exp", *args).items()})
-        cyc = ops_final_exp(fs, cyclotomic=True)
+        old = ops_final_exp(fs, lanes=False)
         row = rows[-1]
-        row[f"{pre}cyclotomic_bound_ms"] = bound_ms(nbytes, cyc)[0]
-        row[f"{pre}cyclotomic_chain_bound_ms"] = (
-            cyc / PEAK_SM_INT32_OPS_PER_S * 1e3)
-        print(f"final_exp (1, {n}, 12, 48) with cyclotomic squares in its "
-              f"hard part (not the kernel's algorithm): bound "
-              f"{row[f'{pre}cyclotomic_bound_ms']:.6f} ms, chain bound on "
-              f"one SM {row[f'{pre}cyclotomic_chain_bound_ms']:.6f} ms",
+        row[f"{pre}complex_square_bound_ms"] = bound_ms(nbytes, old)[0]
+        row[f"{pre}complex_square_chain_bound_ms"] = (
+            old / PEAK_SM_INT32_OPS_PER_S * 1e3)
+        print(f"final_exp (1, {n}, 12, 48) counted on the complex-square "
+              f"chain: bound "
+              f"{row[f'{pre}complex_square_bound_ms']:.6f} ms, chain bound "
+              f"on one SM "
+              f"{row[f'{pre}complex_square_chain_bound_ms']:.6f} ms",
               flush=True)
         if bool(FT.final_exp(fs)[0]) != verdict:
             fail(f"final_exp at P = {n}: verdict is not {verdict}")
     # A product equal to one (x, x^-1), the product whose norm in the
     # reference's flat fq12_inv has a top limb of 224 or more (rows 0 and
-    # 8 of seed 60, as tests/test_torch_final_exp.py), and a zero value.
+    # 8 of seed 60, as tests/test_torch_final_exp.py), a zero value, and
+    # a seeded generic Fq12 (not a Miller value).
     seed60 = np.random.default_rng(60)
     high = torch.from_numpy(np.stack([B.host_fq12_to_mont_limbs(
         [int.from_bytes(seed60.bytes(48), "little") % F381.Q
@@ -1491,7 +1719,8 @@ def bls_kernel_phase(dev, rng):
     x = fq12(1)
     cases = {"a product equal to one": (torch.cat([x, B.fq12_inv(x)]), True),
              "the norm top limb >= 224 product": (high, False),
-             "a zero value": (torch.cat([torch.zeros_like(x), x]), False)}
+             "a zero value": (torch.cat([torch.zeros_like(x), x]), False),
+             "a generic Fq12": (fq12(1), False)}
     for label, (fs, verdict) in cases.items():
         fs = fs[None].contiguous()
         got, want = FT.final_exp(fs), FT.final_exp_plain(fs)
@@ -4039,6 +4268,7 @@ def main() -> int:
         if (rep.get("stack") or rep.get("spill_stores")
                 or rep.get("spill_loads")):
             fail(f"{name} spills or uses a stack frame: {rep}")
+    check_tower_registers(build.build_log())
     shuffles, depths = sass_shuffles()
     print(f"warp shuffles in each kernel's machine code (cuobjdump): "
           f"{shuffles or 'not measured'}; by loop depth: "

@@ -1,9 +1,8 @@
 // The Fq2 / Fq6 / Fq12 tower over the word field of fq381w.cuh, and the
 // chains of the BLS12-381 check that run on it (fq12_tower.cu): the
-// Miller accumulation, the hard part of the final exponentiation, and
-// the whole final exponentiation of a product of Miller values (the
-// product, the easy part with its tower inverse, the hard part and the
-// test for one).
+// Miller accumulation, the product of Miller values and the tower
+// inverse (the final exponentiation's hard part runs on the split step
+// of fq12_lanes.cuh).
 //
 // Tower: Fq2 = Fq[u]/(u^2 + 1), Fq6 = Fq2[v]/(v^3 - (1 + u)), Fq12 =
 // Fq6[w]/(w^2 - v).  An Fq12 element is 12 Fq values of 12 words, Fq
@@ -14,19 +13,20 @@
 // k / 2.
 //
 // Every product of the tower (Karatsuba product, complex squaring, the
-// sparse product by a Miller line, the two Frobenius maps, and the two
-// steps of the Fq6 inverse) is bilinear:
+// sparse product by a Miller line, the two Frobenius maps, the two
+// steps of the Fq6 inverse, and the cyclotomic square) is bilinear:
 // K Fq products of operands that are signed sums of the inputs' Fq
-// values, then 12 outputs that are signed sums of the products.
+// values, then 12 outputs that are signed sums of the products (and,
+// for the cyclotomic square, of the input's values).
 // fq12_tower.py derives the sums from the tower formulas (once, in
 // Python) and hands them to the kernel as a table, the same sums its
 // plain version applies; this file only evaluates them.  The table:
 // [offset of each record, records]; record Op is K forms of LA terms
-// over x, K of LB terms over y, 12 of LO terms over the products, with
-// K, LA, LB and LO those of Shape<Op> below.  A term is
-// |coef| << 8 | index: index < 12 names an input value, 12 + i the
-// value's negation q - v_i (over the products: 54 + k names q - P_k);
-// a 0 term pads a form to its record's length and adds nothing.
+// over x, K of LB terms over y, 12 of LO terms over the products and 12
+// of LI over x, with K, LA, LB, LO and LI those of Shape<Op> below.  A
+// term is |coef| << 8 | index: index < 12 names an input value, 12 + i
+// the value's negation q - v_i (over the products: 54 + k names q -
+// P_k); a 0 term pads a form to its record's length and adds nothing.
 //
 // Layout: one block per row, 160 threads, five stages between barriers,
 // every value in shared memory: (1) the inputs and their negations, 24
@@ -38,7 +38,9 @@
 // products, one per thread, and q minus each; (4) the 144 (output,
 // word) columns of the output sums, one per thread; (5) the 12 outputs'
 // carries and one reduction each into [0, q).  Every thread of a warp
-// walks the same number of terms, so the sums do not diverge.
+// walks the same number of terms, so the sums do not diverge.  (The
+// cyclotomic record's input terms are read only by fq12_lanes.cuh's
+// step.)
 //
 // tasks() runs one piece of work per index across the block and ends
 // with a barrier; without __CUDACC__ it is a serial loop, so a host
@@ -70,9 +72,9 @@ constexpr int kFlatInts = 12 * 48;     // ints of one flat element's limbs
 // Table records, in fq12_tower.py's order (OPS).
 enum Op {
   kMul = 0, kSqr = 1, kLine = 2, kFrob1 = 3, kFrob2 = 4, kInv6Abc = 5,
-  kInv6Norm = 6
+  kInv6Norm = 6, kCyc = 7
 };
-constexpr int kOps = 7;
+constexpr int kOps = 8;
 
 #if defined(__CUDACC__)
 template <class F>
@@ -126,57 +128,62 @@ TW_FN void load12(const uint32_t* p, uint32_t (&r)[kWords]) {
 #endif
 }
 
-// The records' shapes: K products, the lengths LA, LB and LO of their
-// forms, and whether an operand form takes a negation (then the inputs'
-// negations are made first).  fq12_tower.py pads each record to these
-// (RECORD_SHAPES, which its tests hold to these through record_shape()
-// below); fixed lengths let every loop below unroll, so each thread
-// issues all of its loads at once.
+// The records' shapes: K products, the lengths LA, LB, LO and LI of
+// their forms, and whether an operand form takes a negation (then the
+// inputs' negations are made first).  fq12_tower.py pads each record to
+// these (RECORD_SHAPES, which its tests hold to these through
+// record_shape() below); fixed lengths let every loop below unroll, so
+// each thread issues all of its loads at once.
 template <int Op> struct Shape;
 template <> struct Shape<kMul> {
-  static constexpr int k = 54, la = 8, lb = 8, lo = 36;
+  static constexpr int k = 54, la = 8, lb = 8, lo = 36, li = 0;
   static constexpr bool neg = false;
 };
 template <> struct Shape<kSqr> {
-  static constexpr int k = 36, la = 8, lb = 8, lo = 23;
+  static constexpr int k = 36, la = 8, lb = 8, lo = 23, li = 0;
   static constexpr bool neg = true;
 };
 template <> struct Shape<kLine> {
-  static constexpr int k = 42, la = 8, lb = 4, lo = 21;
+  static constexpr int k = 42, la = 8, lb = 4, lo = 21, li = 0;
   static constexpr bool neg = false;
 };
 template <> struct Shape<kFrob1> {
-  static constexpr int k = 18, la = 2, lb = 2, lo = 3;
+  static constexpr int k = 18, la = 2, lb = 2, lo = 3, li = 0;
   static constexpr bool neg = true;
 };
 template <> struct Shape<kFrob2> {
-  static constexpr int k = 12, la = 1, lb = 1, lo = 1;
+  static constexpr int k = 12, la = 1, lb = 1, lo = 1, li = 0;
   static constexpr bool neg = false;
 };
 template <> struct Shape<kInv6Abc> {
-  static constexpr int k = 18, la = 2, lb = 2, lo = 6;
+  static constexpr int k = 18, la = 2, lb = 2, lo = 6, li = 0;
   static constexpr bool neg = false;
 };
 template <> struct Shape<kInv6Norm> {
-  static constexpr int k = 9, la = 2, lb = 2, lo = 7;
+  static constexpr int k = 9, la = 2, lb = 2, lo = 7, li = 0;
   static constexpr bool neg = false;
 };
+// The cyclotomic square: each output also takes its own input value.
+template <> struct Shape<kCyc> {
+  static constexpr int k = 18, la = 4, lb = 4, lo = 6, li = 1;
+  static constexpr bool neg = true;
+};
 
-// K, LA, LB and LO of record op, for the host's check of the table.
+template <int Op>
+inline void shape_of(int* out) {
+  using S = Shape<Op>;
+  const int v[6] = {S::k, S::la, S::lb, S::lo, S::li, S::neg ? 1 : 0};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+}
+
+// K, LA, LB, LO, LI and neg of record op, for the host's check of the
+// table.
 inline void record_shape(int op, int* out) {
-  const int shapes[kOps][4] = {
-      {Shape<kMul>::k, Shape<kMul>::la, Shape<kMul>::lb, Shape<kMul>::lo},
-      {Shape<kSqr>::k, Shape<kSqr>::la, Shape<kSqr>::lb, Shape<kSqr>::lo},
-      {Shape<kLine>::k, Shape<kLine>::la, Shape<kLine>::lb, Shape<kLine>::lo},
-      {Shape<kFrob1>::k, Shape<kFrob1>::la, Shape<kFrob1>::lb,
-       Shape<kFrob1>::lo},
-      {Shape<kFrob2>::k, Shape<kFrob2>::la, Shape<kFrob2>::lb,
-       Shape<kFrob2>::lo},
-      {Shape<kInv6Abc>::k, Shape<kInv6Abc>::la, Shape<kInv6Abc>::lb,
-       Shape<kInv6Abc>::lo},
-      {Shape<kInv6Norm>::k, Shape<kInv6Norm>::la, Shape<kInv6Norm>::lb,
-       Shape<kInv6Norm>::lo}};
-  for (int i = 0; i < 4; ++i) out[i] = shapes[op][i];
+  void (*const shapes[kOps])(int*) = {
+      shape_of<kMul>, shape_of<kSqr>, shape_of<kLine>, shape_of<kFrob1>,
+      shape_of<kFrob2>, shape_of<kInv6Abc>, shape_of<kInv6Norm>,
+      shape_of<kCyc>};
+  shapes[op](out);
 }
 
 // One operand: the sum of the form's Len terms over values v, as words
@@ -357,69 +364,6 @@ TW_FN bool is_line_sparse(const uint32_t* x) {
   return true;
 }
 
-// acc = base^e, e given by nd digits in base 2^width, most significant
-// first, the first nonzero: table[d - 1] = base^d for d < 2^width (2^width
-// - 2 products), then width squarings per digit and a product by the
-// table for each nonzero digit.  Digits are clamped into the table's
-// range (fq12_tower.py makes them valid).
-TW_OUTLINE void pow_digits(const int* prog, const uint32_t* base,
-                           const int* digits, int nd, int width,
-                           uint32_t* acc, uint32_t* table, const Scratch& s) {
-  const int top = (1 << width) - 1;
-  copy(base, table);
-  for (int d = 2; d <= top; ++d) {
-    bilinear<kMul>(prog, table + (d - 2) * kFq12, base,
-             table + (d - 1) * kFq12, s);
-  }
-  const int d0 = digits[0] < 1 ? 1 : (digits[0] > top ? top : digits[0]);
-  copy(table + (d0 - 1) * kFq12, acc);
-  for (int i = 1; i < nd; ++i) {
-    for (int r = 0; r < width; ++r) {
-      bilinear<kSqr>(prog, acc, acc, acc, s);
-    }
-    const int d = digits[i] < 0 ? 0 : (digits[i] > top ? top : digits[i]);
-    if (d) bilinear<kMul>(prog, acc, table + (d - 1) * kFq12, acc, s);
-  }
-}
-
-// Buffers of one block's hard part, each kFq12 words, and a table of
-// (2^4 - 1) elements.
-struct HardBuffers {
-  uint32_t *f, *a, *b, *t, *u, *table;
-};
-
-// h.a = h.f^((q^4 - q^2 + 1) / r) for h.f in the cyclotomic subgroup (an
-// easy-part output), with x = -BLS_X: a = f^((x - 1)^2 / 3), b = a^x a^q,
-// c = b^(x^2) b^(q^2) b^-1, out = c f, where a^x = conj(a^|x|) and b^-1 =
-// conj(b) hold only in that subgroup.  consts: the Frobenius maps' 12 +
-// 12 Fq constants (y of records kFrob1, kFrob2).
-TW_OUTLINE void hard_pow_tower(const int* prog, const uint32_t* consts,
-                               const int* d1, int n1, const int* dx, int nx,
-                               const HardBuffers& h, const Scratch& s) {
-  pow_digits(prog, h.f, d1, n1, 4, h.a, h.table, s);      // a
-  pow_digits(prog, h.a, dx, nx, 1, h.t, h.table, s);      // a^|x|
-  conj(h.t, h.t);                                         // a^x
-  bilinear<kFrob1>(prog, h.a, consts, h.u, s);            // a^q
-  bilinear<kMul>(prog, h.t, h.u, h.b, s);                 // b
-  pow_digits(prog, h.b, dx, nx, 1, h.t, h.table, s);      // b^|x|
-  pow_digits(prog, h.t, dx, nx, 1, h.a, h.table, s);      // b^(x^2)
-  bilinear<kFrob2>(prog, h.b, consts + 12 * kWords, h.u, s);  // b^(q^2)
-  bilinear<kMul>(prog, h.a, h.u, h.a, s);
-  conj(h.b, h.u);                                         // b^-1
-  bilinear<kMul>(prog, h.a, h.u, h.a, s);                 // c
-  bilinear<kMul>(prog, h.a, h.f, h.a, s);                 // c f
-}
-
-// The hard part of one flat element (fq12_hard_pow).
-TW_OUTLINE void hard_pow_row(const int* prog, const uint32_t* consts,
-                             const int* d1, int n1, const int* dx, int nx,
-                             const int* in, int* out, const HardBuffers& h,
-                             const Scratch& s) {
-  flat_to_tower(in, h.f, 1);
-  hard_pow_tower(prog, consts, d1, n1, dx, nx, h, s);
-  tower_to_flat(h.a, out);
-}
-
 // The product of n flat elements (n >= 1) into the tower element f: they
 // enter the tower up to kProductChunk at a time (into table, kProductChunk
 // elements) and multiply into f by Karatsuba products, in input order.
@@ -457,27 +401,6 @@ TW_OUTLINE void tower_inv(const int* prog, const uint32_t* f,
   tasks(1, [&](int) { fqw::fq2_inv(out, out + kWords, out, out + kWords); });
   bilinear<kMul>(prog, u, out, t, s);             // N^-1
   bilinear<kMul>(prog, cf, t, out, s);            // f^-1
-}
-
-// The final exponentiation of the product of n flat elements (n >= 1):
-// out = p^((q^12 - 1) / r) for p = in_0 ... in_(n-1), as canonical flat
-// limbs, and *ok = (out == 1).  The inputs enter the tower up to 15 at a
-// time (into the table, free until the hard part) and multiply into h.f;
-// the easy part f^((q^6 - 1)(q^2 + 1)) is conj(f) f^-1, then its q^2
-// power times itself; the hard part is hard_pow_tower's chain.
-TW_OUTLINE void final_exp_row(const int* prog, const uint32_t* consts,
-                              const int* d1, int n1, const int* dx, int nx,
-                              const int* in, int n, int* out, int* ok,
-                              const HardBuffers& h, const Scratch& s) {
-  product_tower(prog, in, n, h.f, h.table, s);
-  conj(h.f, h.a);
-  tower_inv(prog, h.f, h.a, h.b, h.t, h.u, s);
-  bilinear<kMul>(prog, h.a, h.b, h.f, s);                 // f^(q^6 - 1)
-  bilinear<kFrob2>(prog, h.f, consts + 12 * kWords, h.a, s);
-  bilinear<kMul>(prog, h.a, h.f, h.f, s);                 // ^(q^2 + 1)
-  hard_pow_tower(prog, consts, d1, n1, dx, nx, h, s);
-  tower_to_flat(h.a, out);
-  tasks(1, [&](int) { *ok = fq12_is_one(h.a) ? 1 : 0; });
 }
 
 // The Miller accumulation f <- f^2 l0 l1 over steps (S, 2, 12, 48) flat

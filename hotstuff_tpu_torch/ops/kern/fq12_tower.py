@@ -37,10 +37,14 @@ tower formulas below run once, on symbols, at import, and leave three
 integer matrices per product (``OPS``): the Karatsuba product (54
 products), the complex square (36), the product by a sparse Miller line
 (42), the two Frobenius maps (18 and 12 products by constants), and the
-two steps of the Fq6 inverse (18 and 9).
+two steps of the Fq6 inverse (18 and 9), and the cyclotomic square of
+the hard part (18, whose outputs also take terms of the input).
 The kernel evaluates those matrices from a table (``PROGRAM``), and the
 plain version applies the same matrices with field381's plain operators,
-so the two run the same algorithm.
+so the two run the same algorithm.  final_exp and fq12_hard_pow run the
+hard part on csrc/fq12_lanes.cuh, each Fq product of its steps split
+across a group of lanes; miller_accumulate and fq12_product run every
+step on csrc/fq12w.cuh, one product a thread.
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
 version on a CPU one.
@@ -153,6 +157,45 @@ def _fq12_sqr(a, b):
     return (_fq6_sub(_fq6_sub(p1, p0), _fq6_by_v(p0)), _fq6_add(p0, p0))
 
 
+def _fq2_sqr(a, b):
+    """Complex squaring in Fq2 of a = b: (a0 + a1)(a0 - a1) + 2 a0 a1 u,
+    2 products."""
+    m = a[0] * b[1]
+    return ((a[0] + a[1]) * (b[0] - b[1]), m + m)
+
+
+def _fq4_sqr(ax, bx, ay, by):
+    """(a + b s)^2 in Fq4 = Fq2[s]/(s^2 - xi), for a + b s given once from
+    each operand: (a^2 + xi b^2, (a + b)^2 - a^2 - b^2), 3 Fq2 squares."""
+    t0, t1 = _fq2_sqr(ax, ay), _fq2_sqr(bx, by)
+    t2 = _fq2_sqr(_add(ax, bx), _add(ay, by))
+    return _add(_fq2_nr(t1), t0), _sub(_sub(t2, t0), t1)
+
+
+def _fq12_cyc_sqr(x, y):
+    """The square of x = y in the cyclotomic subgroup (Granger and Scott,
+    PKC 2010): Fq12 as three Fq4 = Fq2[s]/(s^2 - xi) elements (z0, z1),
+    (z2, z3), (z4, z5), each squared with 3 Fq2 squares, 18 Fq products;
+    each output is 3 t -+ 2 z, so it takes its own input value as a term.
+    Equal to the square only in that subgroup."""
+    def zs(f):
+        return f[0][0], f[1][1], f[1][0], f[0][2], f[0][1], f[1][2]
+
+    zx, zy = zs(x), zs(y)
+
+    def k(c, a):
+        return tuple(c * v for v in a)
+
+    t0, t1 = _fq4_sqr(zx[0], zx[1], zy[0], zy[1])
+    z0, z1 = _sub(k(3, t0), k(2, zx[0])), _add(k(3, t1), k(2, zx[1]))
+    t0, t1 = _fq4_sqr(zx[2], zx[3], zy[2], zy[3])
+    t2, t3 = _fq4_sqr(zx[4], zx[5], zy[4], zy[5])
+    z4, z5 = _sub(k(3, t0), k(2, zx[4])), _add(k(3, t1), k(2, zx[5]))
+    z2 = _add(k(3, _fq2_nr(t3)), k(2, zx[2]))
+    z3 = _sub(k(3, t2), k(2, zx[3]))
+    return ((z0, z4, z3), (z2, z1, z5))
+
+
 def _fq12_mul_line(f, l00, l11, l12):
     """f times a line whose only nonzero Fq2 coefficients are c0.0, c1.1
     and c1.2 (flat w^0, w^3, w^5, w^9, w^11): 14 Fq2 products."""
@@ -249,11 +292,16 @@ class _Sym:
         self.products.append((self.terms, other.terms))
         return _Sym({("p", len(self.products) - 1): 1}, self.products)
 
+    def __rmul__(self, c: int):
+        return _Sym({k: c * v for k, v in self.terms.items()}, self.products)
+
 
 class Bilinear:
     """K products of the sums ``ma`` @ x and ``mb`` @ y, then 12 outputs
-    ``mc`` @ products: integer matrices of shapes (K, 12), (K, 12) and
-    (12, K)."""
+    ``mc`` @ products + ``mx`` @ x: integer matrices of shapes (K, 12),
+    (K, 12), (12, K) and (12, 12).  Only the cyclotomic square's outputs
+    take input terms, each output j at most x_j (so the kernel may write
+    an output over the input it reads)."""
 
     def __init__(self, formula):
         products: list = []
@@ -271,10 +319,12 @@ class Bilinear:
                 assert name == "y"
                 self.mb[p, i] = c
         self.mc = np.zeros((12, k), np.int64)
+        self.mx = np.zeros((12, 12), np.int64)
         for j, o in enumerate(out):
             for (name, p), c in o.terms.items():
-                assert name == "p"
-                self.mc[j, p] = c
+                assert name in ("p", "x")
+                (self.mc if name == "p" else self.mx)[j, p] = c
+        assert not (self.mx - np.diag(np.diag(self.mx))).any()
         # The kernel enters each operand unreduced: at most 8 values below
         # q each, so below 8q < 2^384.
         assert np.abs(self.ma).sum(1).max() <= 8
@@ -316,26 +366,28 @@ OPS = {
     "frob2": Bilinear(lambda x, y: _join(_fq12_frob2(_split(x), y))),
     "inv6_abc": Bilinear(_abc_formula),
     "inv6_norm": Bilinear(_norm_formula),
+    "cyc": Bilinear(lambda x, y: _join(_fq12_cyc_sqr(_split(x), _split(y)))),
 }
-assert [OPS[k].products for k in OPS] == [54, 36, 42, 18, 12, 18, 9]
+assert [OPS[k].products for k in OPS] == [54, 36, 42, 18, 12, 18, 9, 18]
 
 
 MAX_PRODUCTS = 54            # fq12w.cuh kMaxProducts
-# Each record's K, LA, LB, LO as fq12w.cuh's Shape<Op> fixes them at
-# compile time (the forms are padded to these lengths).
-RECORD_SHAPES = {"mul": (54, 8, 8, 36), "sqr": (36, 8, 8, 23),
-                 "line": (42, 8, 4, 21), "frob1": (18, 2, 2, 3),
-                 "frob2": (12, 1, 1, 1), "inv6_abc": (18, 2, 2, 6),
-                 "inv6_norm": (9, 2, 2, 7)}
+# Each record's K, LA, LB, LO and LI as fq12w.cuh's Shape<Op> fixes them
+# at compile time (the forms are padded to these lengths).
+RECORD_SHAPES = {"mul": (54, 8, 8, 36, 0), "sqr": (36, 8, 8, 23, 0),
+                 "line": (42, 8, 4, 21, 0), "frob1": (18, 2, 2, 3, 0),
+                 "frob2": (12, 1, 1, 1, 0), "inv6_abc": (18, 2, 2, 6, 0),
+                 "inv6_norm": (9, 2, 2, 7, 0), "cyc": (18, 4, 4, 6, 1)}
 
 
 def _program() -> np.ndarray:
     """The kernel's table: [offset of each record, records].  A record
     is K forms of LA terms over x, K of LB over y, 12 of LO over the
-    products (K, LA, LB, LO from RECORD_SHAPES); a term is
-    |coef| << 8 | index, where a negative coefficient takes the value's
-    negation (index + 12 over the inputs, + MAX_PRODUCTS over the
-    products), and 0 pads a form to its record's length."""
+    products and 12 of LI over x (K, LA, LB, LO, LI from RECORD_SHAPES;
+    LI is 0 but for the cyclotomic square); a term is |coef| << 8 |
+    index, where a negative coefficient takes the value's negation
+    (index + 12 over the inputs, + MAX_PRODUCTS over the products), and
+    0 pads a form to its record's length."""
 
     def forms(m, negated, width):
         rows = [[(abs(int(c)) << 8) | (i + (negated if c < 0 else 0))
@@ -345,13 +397,14 @@ def _program() -> np.ndarray:
 
     records = []
     for name, op in OPS.items():
-        k, la, lb, lo = RECORD_SHAPES[name]
+        k, la, lb, lo, li = RECORD_SHAPES[name]
         assert k == op.products
         fa = forms(op.ma, 12, la)
         fb = forms(op.mb, 12, lb)
         fo = forms(op.mc, MAX_PRODUCTS, lo)
+        fi = forms(op.mx, 12, li) if li else []
         rec = []
-        for block in (fa, fb, fo):
+        for block in (fa, fb, fo, fi):
             for r in block:
                 rec.extend(r)
         records.append(rec)
@@ -439,7 +492,11 @@ def bilinear_plain(op: str, x: torch.Tensor, y: torch.Tensor
     b = OPS[op]
     a_sum = F.canonical(_lin(op + ".a", b.ma, x))
     b_sum = F.canonical(_lin(op + ".b", b.mb, y))
-    return F.canonical(_lin(op + ".c", b.mc, F.mont_mul(a_sum, b_sum)))
+    prods = F.mont_mul(a_sum, b_sum)
+    if not b.mx.any():
+        return F.canonical(_lin(op + ".c", b.mc, prods))
+    return F.canonical(_lin(op + ".c", np.hstack([b.mc, b.mx]),
+                            torch.cat([prods, x], -2)))
 
 
 def flat_to_tower_plain(x: torch.Tensor) -> torch.Tensor:
@@ -470,10 +527,11 @@ def _frob_consts(device) -> tuple:
 
 
 def pow_digits_plain(x: torch.Tensor, digits, width: int) -> torch.Tensor:
-    """x^e for e's digits in base 2^width, most significant first (the
-    first nonzero): the kernel's pow_digits.  The table holds x^1 ..
-    x^(2^width - 1); each later digit takes width squarings and, when
-    nonzero, one product by the table."""
+    """x^e for x in the cyclotomic subgroup and e's digits in base
+    2^width, most significant first (the first nonzero): the kernel's
+    pow_digits (fq12_lanes.cuh).  The table holds x^1 .. x^(2^width - 1);
+    each later digit takes width cyclotomic squares and, when nonzero,
+    one product by the table."""
     table = [x]
     for _ in range(2, 1 << width):
         table.append(bilinear_plain("mul", table[-1], x))
@@ -481,7 +539,7 @@ def pow_digits_plain(x: torch.Tensor, digits, width: int) -> torch.Tensor:
     acc = table[digits[0] - 1]
     for d in digits[1:]:
         for _ in range(width):
-            acc = bilinear_plain("sqr", acc, acc)
+            acc = bilinear_plain("cyc", acc, acc)
         if d:
             acc = bilinear_plain("mul", acc, table[d - 1])
     return acc
@@ -489,7 +547,7 @@ def pow_digits_plain(x: torch.Tensor, digits, width: int) -> torch.Tensor:
 
 def _hard_pow_tower_plain(f: torch.Tensor) -> torch.Tensor:
     """The hard part's chain on canonical tower elements (the kernel's
-    hard_pow_tower)."""
+    hard_pow_tower, fq12_lanes.cuh), its squarings cyclotomic."""
     c1, c2 = _frob_consts(f.device)
     a = pow_digits_plain(f, E1_DIGITS, E1_WIDTH)
     t = conj_plain(pow_digits_plain(a, X_DIGITS, 1))
@@ -504,8 +562,9 @@ def fq12_hard_pow_plain(x: torch.Tensor) -> torch.Tensor:
     """(..., 12, 48) flat Fq12 in the cyclotomic subgroup -> canonical
     limbs of x^((q^4 - q^2 + 1) / r), by the kernel's chain: a =
     f^((x - 1)^2 / 3), b = conj(a^|x|) a^q, c = (b^|x|)^|x| b^(q^2)
-    conj(b), out = c f.  Outside the subgroup conjugation is not the
-    inverse and the result is not the power."""
+    conj(b), out = c f, every squaring a cyclotomic square.  Outside the
+    subgroup neither conjugation is the inverse nor the cyclotomic
+    square the square, and the result is not the power."""
     return tower_to_flat_plain(_hard_pow_tower_plain(flat_to_tower_plain(x)))
 
 
@@ -541,7 +600,8 @@ def final_exp_plain(fs: torch.Tensor) -> tuple:
     verdicts, (rows, 12, 48) canonical limbs of p^((q^12 - 1) / r)) for
     p the product of each row's P values, by the kernel's algorithm: the
     P - 1 Karatsuba products, f^(q^6 - 1) = conj(f) f^-1, its q^2 power
-    times itself, the hard part's chain, the test for one."""
+    times itself (in the cyclotomic subgroup from here on), the hard
+    part's chain with cyclotomic squares, the test for one."""
     t = flat_to_tower_plain(fs)
     f = t[:, 0]
     for i in range(1, t.shape[1]):

@@ -11,6 +11,10 @@ always run first.  Then, in the order given:
   4   the kernels beside their plain versions (point_ladder at each of
       its shapes, with its bounds; ptxas's report and the shuffle
       counts first);
+  7k  the BLS kernels beside their plain versions (phase 7's first
+      half: miller_accumulate, final_exp at P = 2, 4, 8 and 68 and its
+      other cases, fq12_hard_pow, the flat chains; the split-step
+      kernels' registers first) and the tower pieces' program;
   7   the BLS requests through the port's sidecar on the card (phase
       7's second half: verdicts held to the host reference, each
       request's latency and its host preparation by stage);
@@ -41,8 +45,8 @@ LEGS = {"14:ed25519": ("ed25519", False), "14:bls": ("bls", False),
 
 def main(argv) -> int:
     phases = list(argv)
-    if not phases or set(phases) - {"4", "7", "14", "15", *LEGS}:
-        print("usage: torch_phases.py PHASE... (4, 7, 14, 14:ed25519, "
+    if not phases or set(phases) - {"4", "7k", "7", "14", "15", *LEGS}:
+        print("usage: torch_phases.py PHASE... (4, 7k, 7, 14, 14:ed25519, "
               "14:bls, 14:faults or 15)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
@@ -65,6 +69,7 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.monotonic()
+    pieces = smoke.start_tower_pieces_build() if "7k" in phases else None
     build.load()
     print(f"kernel build and load: {time.monotonic() - t0:.3f} s; "
           f"sources {build.source_hash()}", flush=True)
@@ -86,6 +91,21 @@ def main(argv) -> int:
                       flush=True)
                 smoke.kernel_phase(dev, np.random.default_rng(20261017),
                                    shuffles, depths)
+            elif phase == "7k":
+                import numpy as np
+
+                log = build.build_log()
+                tower = log[log.find("== fq12_tower.cu"):]
+                print(tower.split("\n== ")[0], flush=True)
+                try:
+                    smoke.check_tower_registers(log)
+                    registers_ok = True
+                except SystemExit:
+                    registers_ok = False     # reported; the phase goes on
+                smoke.bls_kernel_phase(dev, np.random.default_rng(20261017))
+                smoke.tower_pieces_phase(*pieces)
+                if not registers_ok:
+                    raise SystemExit(1)
             elif phase == "7":
                 reqs, want = smoke.make_bls_requests()
                 smoke.bls_sidecar_phase(dev, reqs, want)

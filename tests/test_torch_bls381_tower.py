@@ -16,11 +16,12 @@ numpy-seeded, one torch thread:
   of lines equal to one (all three branches taken, counted) against
   field381.canonical of the JAX package's miller_accumulate;
 * field381.canonical on weak values up to ~2^388;
-* the kernels' own logic (csrc/fq12w.cuh, csrc/fq381w.cuh compiled as
-  plain C++ by a host compiler, one row at a time) against the plain
-  versions -- the hard part, the Miller accumulation, the tower inverse
-  and final_exp at P = 17 (two of its chunks of inputs) -- and the word
-  field, with its inversion, against Python integers.
+* the kernels' own logic (csrc/fq12_lanes.cuh, csrc/fq12w.cuh,
+  csrc/fq381w.cuh compiled as plain C++ by a host compiler, one row at a
+  time) against the plain versions -- the hard part, the Miller
+  accumulation, the tower inverse and final_exp at P = 17 (two of its
+  chunks of inputs) -- and the word field, with its inversion, against
+  Python integers.
 
 Every comparison is exact: residues in canonical limbs (tolerance 0).
 The new outputs are canonical; the JAX package's weak limbs are
@@ -139,16 +140,17 @@ def test_chain_constants():
     assert T.E1.bit_length() == 126 and len(T.E1_DIGITS) == 32
     assert sum(T.X_DIGITS) == 6 and len(T.X_DIGITS) == 64
     prog = T.PROGRAM
-    # [offset of each of the 7 records, records]: record i is K forms of
-    # LA terms, K of LB and 12 of LO, as RECORD_SHAPES gives them.
-    sizes = [k * (la + lb) + 12 * lo
-             for k, la, lb, lo in (T.RECORD_SHAPES[n] for n in T.OPS)]
+    # [offset of each of the 8 records, records]: record i is K forms of
+    # LA terms, K of LB, 12 of LO and 12 of LI, as RECORD_SHAPES gives
+    # them (LI is 0 but for the cyclotomic square).
+    sizes = [k * (la + lb) + 12 * (lo + li)
+             for k, la, lb, lo, li in (T.RECORD_SHAPES[n] for n in T.OPS)]
     assert list(T.OPS) == ["mul", "sqr", "line", "frob1", "frob2",
-                           "inv6_abc", "inv6_norm"]
+                           "inv6_abc", "inv6_norm", "cyc"]
     assert [T.RECORD_SHAPES[n][0] for n in T.OPS] == [54, 36, 42, 18, 12,
-                                                      18, 9]
-    assert prog[:7].tolist() == np.cumsum([7] + sizes[:-1]).tolist()
-    assert len(prog) == 7 + sum(sizes)
+                                                      18, 9, 18]
+    assert prog[:8].tolist() == np.cumsum([8] + sizes[:-1]).tolist()
+    assert len(prog) == 8 + sum(sizes)
 
 
 @pytest.fixture(scope="module")
@@ -229,11 +231,28 @@ def test_canonical_on_weak_values_near_2_386():
 # ---------------------------------------------------------------------------
 
 _HARNESS = r"""
-#include "fq12w.cuh"
+#include "fq12_lanes.cuh"
 #include <vector>
 static uint32_t words[tw::kScratchWords];
 static uint64_t cols[12 * tw::kWords];
 static tw::Scratch scratch() { return tw::make_scratch(words, cols); }
+// a b R^-1 mod q by fq12_lanes.cuh's split product: the values as the
+// digits of a group's lanes (lane l words W l ..), the group run at once.
+template <int W>
+static void split_mul(const uint32_t* a, const uint32_t* b, uint32_t* r) {
+  constexpr int G = tl::Split<W>::kGroup, L = tl::Split<W>::kLanes;
+  uint32_t x[G][W] = {}, y[G][W] = {}, z[G][W];
+  for (int l = 0; l < L; ++l) {
+    for (int k = 0; k < W; ++k) {
+      x[l][k] = a[W * l + k];
+      y[l][k] = b[W * l + k];
+    }
+  }
+  tl::mont_split<W>(tl::Group<G>{}, x, y, z);
+  for (int l = 0; l < L; ++l) {
+    for (int k = 0; k < W; ++k) r[W * l + k] = z[l][k];
+  }
+}
 extern "C" {
 void hh_record_shape(int op, int* out) { tw::record_shape(op, out); }
 void hh_hard_pow(const int* x, const int* prog, const int* consts,
@@ -241,10 +260,10 @@ void hh_hard_pow(const int* x, const int* prog, const int* consts,
                  long long rows) {
   std::vector<uint32_t> buf(20 * tw::kFq12);
   uint32_t* b = buf.data();
-  tw::HardBuffers h{b, b + tw::kFq12, b + 2 * tw::kFq12, b + 3 * tw::kFq12,
+  tl::HardBuffers h{b, b + tw::kFq12, b + 2 * tw::kFq12, b + 3 * tw::kFq12,
                     b + 4 * tw::kFq12, b + 5 * tw::kFq12};
   for (long long r = 0; r < rows; ++r)
-    tw::hard_pow_row(prog, reinterpret_cast<const uint32_t*>(consts), d1, n1,
+    tl::hard_pow_row(prog, reinterpret_cast<const uint32_t*>(consts), d1, n1,
                      dx, nx, x + r * tw::kFlatInts, out + r * tw::kFlatInts,
                      h, scratch());
 }
@@ -256,6 +275,21 @@ void hh_miller(const int* lines, const int* prog, int* out, long long rows,
     tw::miller_row(prog, lines + r * steps * 2 * tw::kFlatInts, steps,
                    out + r * tw::kFlatInts, f.data(), l.data(), stage.data(),
                    scratch());
+}
+void hh_split_mul(int w, const uint32_t* a, const uint32_t* b,
+                  uint32_t* out, long long n) {
+  for (long long i = 0; i < n; ++i) {
+    const long long o = 12 * i;
+    if (w == 2) split_mul<2>(a + o, b + o, out + o);
+    else if (w == 3) split_mul<3>(a + o, b + o, out + o);
+    else split_mul<4>(a + o, b + o, out + o);
+  }
+}
+// The kernels' split step in place, as the hard part calls it: out holds
+// x on entry; the square's y is out itself.
+void hh_step(int op, const uint32_t* y, const int* prog, uint32_t* out) {
+  if (op == tw::kCyc) tl::step<tw::kCyc, tl::kW, tl::kWO>(prog, out, out, out, words);
+  else tl::step<tw::kMul, tl::kW, tl::kWO>(prog, out, y, out, words);
 }
 void hh_mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out,
                  long long n) {
@@ -282,10 +316,10 @@ void hh_final_exp(const int* x, int n, const int* prog, const int* consts,
                   int* ok, long long rows) {
   std::vector<uint32_t> buf(20 * tw::kFq12);
   uint32_t* b = buf.data();
-  tw::HardBuffers h{b, b + tw::kFq12, b + 2 * tw::kFq12, b + 3 * tw::kFq12,
+  tl::HardBuffers h{b, b + tw::kFq12, b + 2 * tw::kFq12, b + 3 * tw::kFq12,
                     b + 4 * tw::kFq12, b + 5 * tw::kFq12};
   for (long long r = 0; r < rows; ++r)
-    tw::final_exp_row(prog, reinterpret_cast<const uint32_t*>(consts), d1, n1,
+    tl::final_exp_row(prog, reinterpret_cast<const uint32_t*>(consts), d1, n1,
                       dx, nx, x + r * n * tw::kFlatInts, n,
                       out + r * tw::kFlatInts, ok + r, h, scratch());
 }
@@ -323,12 +357,17 @@ def _unwords(w) -> list:
 
 
 def test_kernel_record_shapes_equal_the_table(harness):
-    """fq12w.cuh's Shape<Op> (compile-time K, LA, LB, LO) against
-    RECORD_SHAPES, to which fq12_tower.py pads the table's records."""
+    """fq12w.cuh's Shape<Op> (compile-time K, LA, LB, LO, LI) against
+    RECORD_SHAPES, to which fq12_tower.py pads the table's records, and
+    its neg flag against whether the record's operands take a negation
+    (fq12_lanes.cuh's step skips the negation work where they take
+    none)."""
     for op, name in enumerate(T.OPS):
-        out = np.zeros(4, np.int32)
+        out = np.zeros(6, np.int32)
         harness.hh_record_shape(op, _ptr(out))
-        assert tuple(out.tolist()) == T.RECORD_SHAPES[name], name
+        assert tuple(out[:5].tolist()) == T.RECORD_SHAPES[name], name
+        m = T.OPS[name]
+        assert out[5] == int((m.ma < 0).any() or (m.mb < 0).any()), name
 
 
 def test_word_field_on_the_host_equals_python_integers(harness):
@@ -408,7 +447,7 @@ def test_tower_inverse_on_the_host_equals_plain(harness):
 
 
 def test_final_exp_on_the_host_equals_plain(harness):
-    """fq12w.cuh final_exp_row at P = 17 (two of the kernel's chunks of
+    """fq12_lanes.cuh final_exp_row at P = 17 (two of the kernel's chunks of
     15 inputs) on a QC's two real Miller values followed by ones (verdict
     true), on random values (false) and on a row with a zero value."""
     sk, pk = ref.key_gen(b"\x07" * 32)
@@ -434,3 +473,71 @@ def test_final_exp_on_the_host_equals_plain(harness):
                          ctypes.c_longlong(len(x)))
     assert np.array_equal(out, want.numpy())
     assert ok.tolist() == [1, 0, 0]
+
+
+@pytest.mark.parametrize("w", [2, 3, 4])
+def test_split_product_on_the_host_equals_python_integers(harness, w):
+    """fq12_lanes.cuh mont_split (a group's lanes run one after another,
+    a shuffle an array read) at W words a lane, on the operand bounds
+    (R - 1, 8q - 1) and seeded values: a b R^-1 mod q, the words of
+    fqw::mont_mul."""
+    rng = np.random.default_rng(80 + w)
+    r = F.R
+    a = [r - 1, 8 * Q - 1, Q - 1, 0, 1] + \
+        [int.from_bytes(rng.bytes(48), "little") for _ in range(40)]
+    b = [r - 1, 8 * Q - 1, 1, r - 1, 8 * Q - 1] + \
+        [int.from_bytes(rng.bytes(48), "little") for _ in range(40)]
+    wa, wb = _words(a), _words(b)
+    out, ref_out = np.zeros_like(wa), np.zeros_like(wa)
+    harness.hh_split_mul(w, _ptr(wa), _ptr(wb), _ptr(out),
+                         ctypes.c_longlong(len(a)))
+    harness.hh_mont_mul(_ptr(wa), _ptr(wb), _ptr(ref_out),
+                        ctypes.c_longlong(len(a)))
+    rinv = pow(r, -1, Q)
+    assert _unwords(out) == [x * y * rinv % Q for x, y in zip(a, b)]
+    assert np.array_equal(out, ref_out)
+
+
+@pytest.mark.parametrize("name", ["cyc", "mul"])
+def test_split_step_on_the_host_equals_plain(harness, name):
+    """fq12_lanes.cuh step<kCyc> and step<kMul> (each product on a group
+    of 4 lanes), in place, against bilinear_plain on seeded canonical
+    tower elements."""
+    rng = np.random.default_rng(85)
+    vals = [[int.from_bytes(rng.bytes(48), "little") % Q for _ in range(12)]
+            for _ in range(2)]
+    x = torch.from_numpy(np.stack([np.stack([F.to_limbs(v) for v in row])
+                                   for row in vals]))
+    out, y = _limb_words(x[0]).copy(), _limb_words(x[1]).copy()
+    op = list(T.OPS).index(name)
+    harness.hh_step(op, _ptr(y), _ptr(T.PROGRAM), _ptr(out))
+    want = T.bilinear_plain(name, x[0], x[0] if name == "cyc" else x[1])
+    assert np.array_equal(out, _limb_words(want))
+
+
+def test_final_exp_at_two_on_the_host_equals_plain(harness):
+    """fq12_lanes.cuh final_exp_row at P = 2 (a QC's shape) on a QC's two
+    real Miller values (verdict true) and on a row with a zero value."""
+    sk, pk = ref.key_gen(b"\x08" * 32)
+    msg = b"\x36" * 32
+    neg_g1 = ref.g1_neg(ref.g1_generator())
+    qc = [ref.miller_loop(ref._twist(ref.hash_to_g2(msg)),
+                          ref._cast_g1_fq12(pk)),
+          ref.miller_loop(ref._twist(ref.sign(sk, msg)),
+                          ref._cast_g1_fq12(neg_g1))]
+    rnd = _host_elems(np.random.default_rng(86), 1)
+    fs = torch.stack([_mont(qc), _mont([(0,) * 12] + rnd)])
+    want_ok, want = T.final_exp_plain(fs)
+    assert want_ok.tolist() == [True, False]
+    x = fs.numpy().copy()
+    out = np.zeros((len(x), 12, 48), np.int32)
+    ok = np.zeros(len(x), np.int32)
+    consts = T._mont_words(T.FROB_CONSTS)
+    d1 = np.asarray(T.E1_DIGITS, np.int32)
+    dx = np.asarray(T.X_DIGITS, np.int32)
+    harness.hh_final_exp(_ptr(x), x.shape[1], _ptr(T.PROGRAM), _ptr(consts),
+                         _ptr(d1), len(d1), _ptr(dx), len(dx), _ptr(out),
+                         _ptr(ok), ctypes.c_longlong(len(x)))
+    assert np.array_equal(out, want.numpy())
+    assert ok.tolist() == [1, 0]
+    assert _values(out[1:]) == [tuple([0] * 12)]
