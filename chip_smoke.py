@@ -21,7 +21,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      128 rows (a mesh shard of 1024 over 8) and on a table whose limbs
      are all 511, each beside its bounds in operations, in warp
      shuffles (cuobjdump's count per loop depth times the iterations)
-     and, up to 132 rows, on one SM;
+     and, up to 132 rows, on one SM; decompress at 2048, 256 and 16
+     rows (a bulk batch, a QC of 67, a per-signature launch) on real
+     encodings, random bytes and the edge rows (y = 0, 1 and p - 1
+     with either sign, 2, and y >= p: p, p + 1, 2^255 - 1), each beside
+     its bounds in operations and in warp shuffles; the point_ladder
+     and decompress kernels that spill or use a stack frame fail the
+     run in phase 2;
   5. serve the main path through the port's verify sidecar on the card:
      QC verifies of 67 votes from a 100-key committee (the RLC program),
      a QC with a forged vote and a non-canonical S (RLC with bisection),
@@ -175,7 +181,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      names it, every field of the root bench's probes present and
      passing its bar (mesh_rlc and committee_scale: every size measured
      on eight shards of the card, each route launching on every shard;
-     cadence and fleet: their ``ok``), and the launch tallies: each
+     cadence and fleet: their ``ok``; a field that fails, or one the
+     bench names as failed when it exits non-zero, is printed whole,
+     the fleet field's bar by part), and the launch tallies: each
      headline call exactly 16 decompress, 32 point_ladder, 16
      point_multiples and 160 field_mul launches, the rlc field through
      rlc_scalars, rlc_reduce and msm_window_accum, K0 once.
@@ -303,7 +311,10 @@ def ops_ladder_row(steps: int, ndbl: int) -> int:
 
 
 def fail(msg: str) -> None:
+    # On stderr too: a caller that keeps only the end of stderr still
+    # sees which check failed.
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke.py FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -531,6 +542,42 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# decompress's edge rows, (y, sign): y = 0 and y = 1 with either sign,
+# y = p - 1 with either sign, y = 2 (u = 3 over v = 4d + 1 is no
+# square), and y >= p (p, p + 1 and 2^255 - 1; the host flags these, the
+# kernel still sees them).
+P25519 = 2**255 - 19
+DECOMPRESS_EDGE_ROWS = (
+    (0, 0), (0, 1), (1, 0), (1, 1), (P25519 - 1, 0), (P25519 - 1, 1),
+    (2, 0), (P25519, 0), (P25519 + 1, 0), (P25519 + 1, 1),
+    (2**255 - 1, 0), (2**255 - 1, 1))
+
+
+def decompress_inputs(rng, n: int, dev):
+    """(n, 32) int32 y limbs and (n,) int32 sign bits for decompress:
+    encodings of real points (multiples of the base point, up to 256
+    distinct, tiled) in the first 7/8 of the rows (half of the rows
+    that are not edge rows, below 128 rows), then random bytes (about
+    half of them not on the curve), the edge rows last."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
+    from hotstuff_tpu_torch.ops import ed25519 as E
+
+    edges = len(DECOMPRESS_EDGE_ROWS)
+    n_real = n * 7 // 8 if n >= 128 else (n - edges) // 2
+    enc = [ref.encode_point(ref.scalar_mult(int(k), ref.B))
+           for k in rng.integers(1, 2**62, min(256, n_real))]
+    real = np.frombuffer(b"".join(enc), np.uint8).reshape(-1, 32)
+    real = np.tile(real, (n_real // len(real) + 1, 1))[:n_real]
+    rand = rng.integers(0, 256, (n - n_real - edges, 32)).astype(np.uint8)
+    edge = np.array([list((y | s << 255).to_bytes(32, "little"))
+                     for y, s in DECOMPRESS_EDGE_ROWS], np.uint8)
+    arr = np.concatenate([real, rand, edge])
+    return E.split_y_sign(torch.from_numpy(arr).to(dev))
+
+
 def max_abs_err(a, b) -> int:
     """Largest absolute difference; tuples compare element by element
     (a shape mismatch counts as a difference of -1)."""
@@ -548,7 +595,6 @@ def kernel_phase(dev, rng, shuffles, depths):
 
     from hotstuff_tpu_torch.ops import ed25519 as E
     from hotstuff_tpu_torch.ops.kern import field_mul as K1
-    from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
     from hotstuff_tpu_torch.ops.kern import msm_accum as K3
     from hotstuff_tpu_torch.ops.kern import point_chain as PC
     from hotstuff_tpu_torch.ops.kern import probe as K0
@@ -698,19 +744,39 @@ def kernel_phase(dev, rng, shuffles, depths):
     chain_src = "hotstuff_tpu_torch/ops/kern/csrc/point_chain.cu"
     pt_bytes = 4 * 32 * 4
 
-    # decompress: encodings of 256 real points (multiples of the base
-    # point) tiled over 1792 rows, and 256 random rows (about half of
-    # them not on the curve).
-    enc = [ref.encode_point(ref.scalar_mult(int(k), ref.B))
-           for k in rng.integers(1, 2**62, 256)]
-    arr = np.frombuffer(b"".join(enc), np.uint8).reshape(256, 32)
-    arr = np.concatenate([np.tile(arr, (7, 1)),
-                          rng.integers(0, 256, (256, 32)).astype(np.uint8)])
-    y_limbs, sign = E.split_y_sign(torch.from_numpy(arr).to(dev))
-    n = y_limbs.shape[0]
-    record("decompress", chain_src, rep1, f"({n}, 32)", PC.decompress,
-           PC.decompress_plain, (y_limbs, sign),
-           n * (32 * 4 + 4) + n * (pt_bytes + 1), n * OPS_DECOMPRESS_ROW, 20)
+    # decompress at the paths' shapes: 2048 rows (a bulk batch of 1024, a
+    # headline sub-batch), 256 (a QC of 67, bucket 128) and 16 (a
+    # per-signature launch of 3-8 votes), each on real encodings, random
+    # bytes (about half of them not on the curve) and the edge rows, with
+    # its bound in operations and in warp shuffles: a warp runs four rows
+    # (one a lane group), its loops pow_p58's 11 steps and, inside them,
+    # the step's squarings (251 in all).
+    def decompress_case(n):
+        y_limbs, sign = decompress_inputs(rng, n, dev)
+        args = ("decompress", f"({n}, 32)", PC.decompress,
+                PC.decompress_plain, (y_limbs, sign),
+                n * (32 * 4 + 4) + n * (pt_bytes + 1),
+                n * OPS_DECOMPRESS_ROW, 20)
+        depth = depths.get("decompress_groups_kernel")
+        extra = {"shfl_bound_ms": None}
+        if depth and len(depth) <= 3:
+            per_warp = sum(k * t for k, t in zip(depth, (1, 11, 251)))
+            extra = {"shuffles_per_warp": per_warp,
+                     "shfl_bound_ms": (-(-n // 4) * per_warp
+                                       / PEAK_WARP_SHUFFLES_PER_S * 1e3)}
+        print(f"decompress ({n}, 32): {extra.get('shuffles_per_warp')} warp "
+              f"shuffles a warp of four rows (cuobjdump by loop depth "
+              f"{depth}), shuffle bound {extra['shfl_bound_ms']} ms",
+              flush=True)
+        return (y_limbs, sign), args, extra
+
+    (y_limbs, sign), args, extra = decompress_case(2048)
+    record(args[0], chain_src, rep1, *args[1:])
+    rows[-1].update(extra)
+    for n in (256, 16):
+        _, args, extra = decompress_case(n)
+        rows[-1].update({f"rows{n}_{k}": v for k, v in
+                         dict(measure(*args), **extra).items()})
     pts, _ = PC.decompress(y_limbs, sign)
     pts = pts[:1792].contiguous()                # real points only
 
@@ -4099,6 +4165,96 @@ BENCH_ROUND = {"decompress": 16, "point_ladder": 32, "point_multiples": 16,
                "field_mul": 160}
 
 
+def bench_bars(line: dict) -> dict:
+    """Each bar of the bench's last line: its name -> (True when it
+    holds, the field that holds it)."""
+    def get(*keys):
+        v = line
+        for k in keys:
+            v = v.get(k) if isinstance(v, dict) else None
+        return v
+
+    wan = get("chaos", "wan") or {}
+    bars = {"viewchange": (get("viewchange", "ok"), "viewchange"),
+            "surge": (get("surge", "ok"), "surge"),
+            "guard": (get("guard", "ok"), "guard"),
+            "users": (get("users", "ok"), "users"),
+            "chaos recovered": (get("chaos", "recovered"), "chaos"),
+            "chaos slo": (get("chaos", "slo", "ok"), "chaos"),
+            "wan": (bool(wan.get("roundtrip_ok") and
+                         wan.get("partition_enforced") and wan.get("healed")),
+                    "chaos"),
+            "trace": (get("trace", "roundtrip_ok"), "trace"),
+            "sched": (get("sched", "paths") == {"host": 2}, "sched"),
+            "cadence": (get("cadence", "ok"), "cadence"),
+            "cadence mesh slot": (
+                get("cadence", "mesh_ring_slot", "bit_identical"), "cadence"),
+            "fleet": (get("fleet", "ok"), "fleet")}
+    # The mesh fields: every size measured on eight shards of the card
+    # (the masks are checked inside: a wrong one is an error), each route
+    # launching its kernel on every shard.
+    for name, (sizes, routes) in BENCH_MESH.items():
+        for size in sizes:
+            stats = get(name, size) or {}
+            shards = stats.get("launches_per_shard", {})
+            bars[f"{name} {size}"] = (
+                "skipped" not in stats and "error" not in stats
+                and set(shards) == set(routes)
+                and all(shards[r].get(str(i), {}).get(MESH_ROUTE_KERNEL[r])
+                        for r in routes for i in range(8)), name)
+    slot = get("cadence", "mesh_ring_slot", "launches_per_shard") or {}
+    bars["cadence mesh slot launches"] = (all(
+        slot.get(str(i), {}).get("point_ladder") for i in range(8)),
+        "cadence")
+    return bars
+
+
+def fleet_bar_parts(fleet: dict) -> dict:
+    """The parts of the ``fleet`` field's bar (``ok`` of
+    bench.fleet_headline_probe), each True when it holds, with the flood
+    verdict's reason (or the probe's error) and its two p99s."""
+    fleet = fleet if isinstance(fleet, dict) else {}
+    flood = fleet.get("flood") if isinstance(fleet.get("flood"), dict) \
+        else {}
+    return {
+        "masks": fleet.get("masks_bit_identical") is True,
+        "rehome": (fleet.get("rehomes") or 0) >= 1
+        and fleet.get("active_endpoint") == 1,
+        "no_host_fallback": fleet.get("host_fallbacks") == 0,
+        "goodput": (fleet.get("live_goodput_sigs_per_s") or 0) > 0
+        and (fleet.get("failover_goodput_sigs_per_s") or 0) > 0,
+        "dedup": ((fleet.get("dedup") or {}).get("hit_rate") or 0) > 0,
+        "flood": flood.get("ok") is True,
+        "reason": (flood.get("reason") or flood.get("error")
+                   or flood.get("errors") or fleet.get("error")),
+        "pre_p99_ms": flood.get("pre_p99_ms"),
+        "post_p99_ms": flood.get("post_p99_ms")}
+
+
+def print_failed_fields(line: dict, stderr: str = "") -> list:
+    """Print each field of the bench's last line that fails: those the
+    bench names on stderr ("bench: failed fields: ...") and those that
+    hold a failed bar, whole, and the fleet field's bar by part.
+    Returns their names."""
+    import re
+
+    named = []
+    for m in re.finditer(r"failed fields: (.*)", stderr or ""):
+        named += [x.strip() for x in m.group(1).split(",") if x.strip()]
+    held = [field for ok, field in bench_bars(line).values()
+            if ok is not True]
+    names = [n for n in dict.fromkeys(named + held) if n in line]
+    for name in names:
+        out = [f"bench failed field {name}: " + json.dumps(line[name])]
+        if name == "fleet":
+            out.append("bench fleet bar: "
+                       + json.dumps(fleet_bar_parts(line["fleet"])))
+        for text in out:
+            print(text, flush=True)
+            print(text, file=sys.stderr, flush=True)
+    return names
+
+
 def bench_phase(card: str) -> dict:
     """Phase 15: the port's headline bench on the card, in its own
     process, at full width (G x N = 16 x 1024, 20 rounds, best of 4).
@@ -4121,6 +4277,8 @@ def bench_phase(card: str) -> dict:
     wall = time.monotonic() - t0
     lines = [x for x in proc.stdout.splitlines() if x.startswith("{")]
     if proc.returncode != 0 or not lines:
+        if lines:
+            print_failed_fields(json.loads(lines[-1]), proc.stderr)
         fail(f"bench exited {proc.returncode} after {wall:.1f} s: "
              f"{proc.stderr[-3000:]}")
     line = json.loads(lines[-1])
@@ -4153,37 +4311,11 @@ def bench_phase(card: str) -> dict:
         fail(f"bench roofline route {roof['route']} card {roof['card']}")
     chaos = line["chaos"]
     wan = chaos["wan"]
-    bars = {"viewchange": view["ok"], "surge": line["surge"]["ok"],
-            "guard": line["guard"]["ok"], "users": line["users"]["ok"],
-            "chaos recovered": chaos["recovered"],
-            "chaos slo": chaos["slo"]["ok"],
-            "wan": wan["roundtrip_ok"] and wan["partition_enforced"]
-            and wan["healed"],
-            "trace": line["trace"]["roundtrip_ok"],
-            "sched": line["sched"]["paths"] == {"host": 2},
-            "cadence": line["cadence"]["ok"],
-            "cadence mesh slot":
-                line["cadence"]["mesh_ring_slot"].get("bit_identical"),
-            "fleet": line["fleet"]["ok"]}
-    # The mesh fields: every size measured on eight shards of the card
-    # (the masks are checked inside: a wrong one is an error), each route
-    # launching its kernel on every shard.
-    for name, (sizes, routes) in BENCH_MESH.items():
-        field = line[name]
-        for size in sizes:
-            stats = field.get(size, {})
-            shards = stats.get("launches_per_shard", {})
-            bars[f"{name} {size}"] = (
-                "skipped" not in stats and "error" not in stats
-                and set(shards) == set(routes)
-                and all(shards[r].get(str(i), {}).get(MESH_ROUTE_KERNEL[r])
-                        for r in routes for i in range(8)))
-    slot = line["cadence"]["mesh_ring_slot"].get("launches_per_shard", {})
-    bars["cadence mesh slot launches"] = all(
-        slot.get(str(i), {}).get("point_ladder") for i in range(8))
+    bars = {name: ok for name, (ok, _) in bench_bars(line).items()}
     for name in ("mesh_rlc", "committee_scale", "cadence", "fleet"):
         print(f"bench {name}: " + json.dumps(line[name]), flush=True)
     if not all(v is True for v in bars.values()):
+        print_failed_fields(line, proc.stderr)
         fail(f"bench probes: {bars}")
     tallies = dev["launches"]
     calls = dev["headline_calls"]
@@ -4260,11 +4392,12 @@ def main() -> int:
                 or "entry function" in line):
             print("  ptxas:", line.strip(), flush=True)
 
-    # point_ladder's kernels must keep every value in registers.
+    # point_ladder's and decompress's kernels must keep every value in
+    # registers.
     for name, rep in sorted(ptxas_report(build.build_log()).items()):
-        if not name.startswith("point_ladder"):
+        if not name.startswith(("point_ladder", "decompress")):
             continue
-        print(f"point_ladder kernel {name}: {rep}", flush=True)
+        print(f"point-chain kernel {name}: {rep}", flush=True)
         if (rep.get("stack") or rep.get("spill_stores")
                 or rep.get("spill_loads")):
             fail(f"{name} spills or uses a stack frame: {rep}")

@@ -1,11 +1,13 @@
 // GF(2^255 - 19) on lane groups: the field arithmetic, point formulas and
-// row loop of point_ladder (point_chain.cu).  Only point_ladder uses this
-// header; field25519.cuh keeps the one-limb-a-lane functions of the other
-// kernels.
+// row loop of point_ladder (point_chain.cu), and the squaring and
+// canonical form of decompress, whose rows each run on one group, four
+// rows a warp.  field25519.cuh keeps the one-limb-a-lane functions of
+// the other kernels.
 //
-// Layout: one warp a row, in four groups of G = 8 lanes.  A group holds
-// one field element, lane l of the group holding limbs 4l .. 4l + 3 of the
-// (..., 32) int32 radix-2^8 weak form (every limb < 2^9).  Each point
+// Layout (point_ladder): one warp a row, in four groups of G = 8 lanes.
+// A group holds one field element, lane l of the group holding limbs
+// 4l .. 4l + 3 of the (..., 32) int32 radix-2^8 weak form (every limb
+// < 2^9).  Each point
 // formula (dbl, add_cached) is two phases of four independent multiplies,
 // and group g runs product g of each phase, then takes the other groups'
 // products by warp shuffles, so a step's critical path is ~10 multiplies,
@@ -177,6 +179,203 @@ __device__ __forceinline__ Fe mul(const Fe& a, const Fe& b, int l) {
   return carry<4>(x, l);
 }
 
+// a^2 mod p, weak limbs in and out: the exact coefficients of mul(a, a)
+// (the reference's sqr is that multiply), from 74 products a lane instead
+// of 128, then the same four carry steps.
+//
+// Lane l owns outputs j = 4l + v.  A product a_i a_k with i + k = j (mod
+// 32) has i in block m and k in block n with m + n = l (its "low" part,
+// positions u + w = v) or m + n = l - 1 (its "high" part, u + w = v + 4),
+// mod 8.  mul takes every ordered block pair; here each unordered pair is
+// taken once and doubled, the self pairs (m = n) once as they are:
+//   low  q = 0..3:  blocks (c - q, ceil(l/2) + q),   sum l,
+//   high q = 0..3:  blocks (floor((l-1)/2) - q, c + q), sum l - 1,
+// with c = floor(l/2), and the step q = 4 of whichever sum is even: the
+// block c + 4 with itself, all seven coefficients of its square formed
+// from 10 products, the low four kept on an even lane, the high three on
+// an odd one.  A pair is a self pair when q = 0 and its sum is even;
+// every other pair is doubled.  Its weight is 38 when its first block
+// index goes below 0 (the pair wraps past limb 31): so each lane scales
+// the blocks c - 1 .. c - 4 by 38 where c + s < 0, once, and every first
+// factor comes from those scaled blocks (the last block's square takes
+// one scaled and one plain copy).
+//
+// Each lane fetches the blocks c - 4 .. c + 3 (c - 4 is c + 4), one limb
+// a shuffle, 32 in all (packed two to a word, the unpacking cost what the
+// shuffles saved on the H100).  An odd lane takes the blocks
+// ceil(l/2) + s by a select from the next block (fetching them by
+// shuffle too measured slower).  The
+// doubled products sum apart and are doubled once.  Sums stay below the
+// multiply's (< 2^29): the same integers, summed in another order.
+// tests/test_torch_decompress_layout.py holds a numpy model of this
+// schedule to the JAX package's sqr, and runs this header on the host.
+__device__ __forceinline__ Fe sqr(const Fe& a, int l) {
+  const int c = l >> 1;
+  const bool odd = l & 1;
+  Fe u[G + 1];  // u[s + G / 2]: block c + s, s = -4 .. 4; u[G] unscaled
+#pragma unroll
+  for (int s = -G / 2; s < G / 2; ++s) {
+#pragma unroll
+    for (int v = 0; v < L; ++v) {
+      u[s + G / 2].v[v] = group_shfl(a.v[v], (c + s) & (G - 1));
+    }
+  }
+  u[G] = u[0];
+#pragma unroll
+  for (int s = -G / 2; s < 0; ++s) {
+    const int wrap = c + s < 0 ? 38 : 1;
+#pragma unroll
+    for (int v = 0; v < L; ++v) u[s + G / 2].v[v] *= wrap;
+  }
+  int acc[L] = {0, 0, 0, 0}, dbl[L] = {0, 0, 0, 0};
+#pragma unroll
+  for (int q = 0; q < G / 2; ++q) {
+    // Low part: blocks c - q and ceil(l/2) + q.
+    const Fe& x = u[G / 2 - q];
+    Fe y;
+#pragma unroll
+    for (int v = 0; v < L; ++v) {
+      y.v[v] = odd ? u[G / 2 + q + 1].v[v] : u[G / 2 + q].v[v];
+    }
+    // High part: blocks floor((l-1)/2) - q and c + q.
+    const Fe& z = u[G / 2 + q];
+    Fe h;
+#pragma unroll
+    for (int v = 0; v < L; ++v) {
+      h.v[v] = odd ? u[G / 2 - q].v[v] : u[G / 2 - q - 1].v[v];
+    }
+    if (q == 0) {  // a self pair on one parity, doubled on the other
+#pragma unroll
+      for (int v = 0; v < L; ++v) {
+        int s = 0;
+#pragma unroll
+        for (int k = 0; k <= v; ++k) s += x.v[k] * y.v[v - k];
+        acc[v] += (odd ? 2 : 1) * s;
+      }
+#pragma unroll
+      for (int v = 0; v < L - 1; ++v) {
+        int s = 0;
+#pragma unroll
+        for (int k = v + 1; k < L; ++k) s += h.v[k] * z.v[L + v - k];
+        acc[v] += (odd ? 1 : 2) * s;
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < L; ++v) {
+#pragma unroll
+        for (int k = 0; k <= v; ++k) dbl[v] += x.v[k] * y.v[v - k];
+      }
+#pragma unroll
+      for (int v = 0; v < L - 1; ++v) {
+#pragma unroll
+        for (int k = v + 1; k < L; ++k) dbl[v] += h.v[k] * z.v[L + v - k];
+      }
+    }
+  }
+  // q = 4: block c + 4 squared, one factor scaled by 38.
+  const Fe& xs = u[0];
+  const Fe& x = u[G];
+  const int c0 = xs.v[0] * x.v[0];
+  const int c1 = 2 * (xs.v[0] * x.v[1]);
+  const int c2 = 2 * (xs.v[0] * x.v[2]) + xs.v[1] * x.v[1];
+  const int c3 = 2 * (xs.v[0] * x.v[3] + xs.v[1] * x.v[2]);
+  const int c4 = 2 * (xs.v[1] * x.v[3]) + xs.v[2] * x.v[2];
+  const int c5 = 2 * (xs.v[2] * x.v[3]);
+  const int c6 = xs.v[3] * x.v[3];
+  acc[0] += odd ? c4 : c0;
+  acc[1] += odd ? c5 : c1;
+  acc[2] += odd ? c6 : c2;
+  acc[3] += odd ? 0 : c3;
+  Fe r;
+#pragma unroll
+  for (int v = 0; v < L; ++v) r.v[v] = acc[v] + 2 * dbl[v];
+  return carry<4>(r, l);
+}
+
+// True on every lane of the group when `pred` holds on all its lanes
+// (all four groups of the warp call it together).
+__device__ __forceinline__ bool group_all(bool pred, int g) {
+  return ((__ballot_sync(kFull, pred) >> (G * g)) & 0xFFu) == 0xFFu;
+}
+
+// The carry (or borrow) into each lane's block from a short serial pass
+// over the group: `out[k]` is the carry out of this lane's block for a
+// carry k into it (k < 3); lane i's carry in is lane i - 1's carry out.
+// Returns the carry into this lane, and sets `last` to the carry out of
+// lane G - 1 on every lane.
+__device__ __forceinline__ int carry_in(const int (&out)[3], int l,
+                                        int& last) {
+  int cin = 0, mine = 0;
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    mine = l == i ? cin : mine;
+    const int next = cin == 0 ? out[0] : (cin == 1 ? out[1] : out[2]);
+    cin = group_shfl(next, i);
+  }
+  last = cin;
+  return mine;
+}
+
+// The reference's sequential carry (field25519._sequential_carry): every
+// limb becomes a byte, and the carry out of limb 31 is returned on every
+// lane.  On weak limbs (< 2^9) a carry is at most 2.
+__device__ __forceinline__ int ripple(Fe& x, int l) {
+  int out[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    int t = k;
+#pragma unroll
+    for (int v = 0; v < L; ++v) t = (x.v[v] + t) >> 8;
+    out[k] = t;
+  }
+  int last;
+  int t = carry_in(out, l, last);
+#pragma unroll
+  for (int v = 0; v < L; ++v) {
+    t += x.v[v];
+    x.v[v] = t & 0xFF;
+    t >>= 8;
+  }
+  return last;
+}
+
+__device__ __forceinline__ int p_digit(int i) {
+  return i == 0 ? 237 : (i == 31 ? 127 : 255);
+}
+
+// x - p if x >= p, else x (x canonical bytes below 2^256): the
+// reference's borrow chain.
+__device__ __forceinline__ Fe cond_sub_p(const Fe& x, int l) {
+  int out[3];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    int b = k;
+#pragma unroll
+    for (int v = 0; v < L; ++v) b = x.v[v] - p_digit(L * l + v) - b < 0;
+    out[k] = b;
+  }
+  out[2] = out[1];
+  int last;
+  int b = carry_in(out, l, last);
+  Fe r;
+#pragma unroll
+  for (int v = 0; v < L; ++v) {
+    const int d = x.v[v] - p_digit(L * l + v) - b;
+    b = d < 0;
+    r.v[v] = d + (b << 8);
+  }
+  return last ? x : r;  // a borrow out means x < p
+}
+
+// Weak element -> canonical bytes, value in [0, p): field25519.canonical.
+__device__ __forceinline__ Fe canonical(Fe x, int l) {
+  int c = ripple(x, l);
+  x.v[0] += l == 0 ? 38 * c : 0;
+  c = ripple(x, l);
+  x.v[0] += l == 0 ? 38 * c : 0;
+  return cond_sub_p(cond_sub_p(x, l), l);
+}
+
 // The four products of a formula's phase of independent multiplies.
 struct Quad {
   Fe r[4];
@@ -311,6 +510,104 @@ __device__ __forceinline__ void ladder_row(const int* trow, const int* drow,
     acc = add_cached(acc, q, ln);
   }
   store_fe(orow + ln.g * 32, pick(ln.g, acc.x, acc.y, acc.z, acc.t), ln.l);
+}
+
+// decompress (point_chain.cu): ed25519.decompress_t for one row on one
+// group, four rows a warp.
+constexpr int kRowsPerWarp = 32 / G;
+
+// The reference's pow_p58 chain as 11 steps of k squarings of the running
+// value and one multiply by an earlier value (the slots x, x^(2^2 - 1),
+// x^(2^5 - 1), x^(2^10 - 1), x^(2^20 - 1), x^(2^50 - 1), x^(2^100 - 1));
+// the product goes back to a slot where a later step takes it.
+struct PowStep {
+  int k, take, keep;  // squarings, slot multiplied by, slot kept in (-1)
+};
+static __constant__ PowStep kPowSteps[11] = {
+    {1, 0, 1},  {2, 1, -1}, {1, 0, 2},    {5, 2, 3},   {10, 3, 4}, {20, 4, -1},
+    {10, 3, 5}, {50, 5, 6}, {100, 6, -1}, {50, 5, -1}, {2, 0, -1}};
+
+__device__ __forceinline__ Fe select(bool p, const Fe& a, const Fe& b) {
+  Fe r;
+#pragma unroll
+  for (int v = 0; v < L; ++v) r.v[v] = p ? a.v[v] : b.v[v];
+  return r;
+}
+
+// x^((p-5)/8) = x^(2^252 - 3): 251 squarings and 11 multiplies, op for op
+// the reference's chain.  One loop of steps around one loop of squarings
+// (unroll 1): one copy of each in the machine code.
+__device__ __forceinline__ Fe pow_p58(const Fe& x, int l) {
+  Fe slot[7];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) slot[i] = x;
+  Fe acc = x;
+#pragma unroll 1
+  for (int s = 0; s < 11; ++s) {
+    const PowStep st = kPowSteps[s];
+#pragma unroll 1
+    for (int i = 0; i < st.k; ++i) acc = sqr(acc, l);
+    Fe m = slot[0];
+#pragma unroll
+    for (int i = 1; i < 7; ++i) m = select(st.take == i, slot[i], m);
+    acc = mul(acc, m, l);
+#pragma unroll
+    for (int i = 1; i < 7; ++i) slot[i] = select(st.keep == i, acc, slot[i]);
+  }
+  return acc;
+}
+
+// Field equality of two canonical values, on every lane of group g.
+__device__ __forceinline__ bool equal(const Fe& a, const Fe& b, int g) {
+  bool same = true;
+#pragma unroll
+  for (int v = 0; v < L; ++v) same = same && a.v[v] == b.v[v];
+  return group_all(same, g);
+}
+
+// This lane's limbs of a row of 32 (no alignment asked).
+__device__ __forceinline__ Fe load_limbs(const int* row, int l) {
+  Fe x;
+#pragma unroll
+  for (int v = 0; v < L; ++v) x.v[v] = row[L * l + v];
+  return x;
+}
+
+// One row of decompress, op for op the reference's decompress_t: the
+// x-recovery x = u v^3 (u v^7)^((p-5)/8) with u = y^2 - 1, v = d y^2 + 1,
+// the two equality tests, the sqrt(-1) fix-up and the sign flip.  `d`
+// and `sqrt_m1` are canonical limbs; `orow` gets (x, y, 1, x y) and `ok`
+// the mask when `live`.  Every lane of the warp calls it together.
+__device__ __forceinline__ void decompress_row(
+    const int* yrow, int sign, const int* d, const int* sqrt_m1, int* orow,
+    unsigned char* ok, bool live, int g, int l) {
+  const Fe y = load_limbs(yrow, l);
+  const Fe one{{l == 0 ? 1 : 0, 0, 0, 0}};
+  const Fe y2 = sqr(y, l);
+  const Fe u = sub(y2, one, l);
+  const Fe v = add(mul(load_limbs(d, l), y2, l), one, l);
+  const Fe v3 = mul(sqr(v, l), v, l);
+  const Fe v7 = mul(sqr(v3, l), v, l);
+  Fe x = mul(mul(u, v3, l), pow_p58(mul(u, v7, l), l), l);
+  const Fe vxx = canonical(mul(v, sqr(x, l), l), l);
+  const bool ok_direct = equal(vxx, canonical(u, l), g);
+  const bool ok_twist = equal(vxx, canonical(neg(u, l), l), g);
+  x = select(ok_twist, mul(x, load_limbs(sqrt_m1, l), l), x);
+  // Sign adjustment; x == 0 with sign 1 is invalid.
+  const Fe xc = canonical(x, l);
+  const bool x_zero = equal(xc, Fe{}, g);
+  const int parity = group_shfl(xc.v[0], 0) & 1;
+  x = select(parity != sign && !x_zero, neg(x, l), x);
+  const Fe t = mul(x, y, l);
+  if (live) {
+    store_fe(orow, x, l);
+    store_fe(orow + 32, y, l);
+    store_fe(orow + 64, one, l);
+    store_fe(orow + 96, t, l);
+    if (l == 0) {
+      *ok = (ok_direct || ok_twist) && !(x_zero && sign == 1) ? 1 : 0;
+    }
+  }
 }
 
 }  // namespace lanes

@@ -17,37 +17,47 @@
 //                    cached window sum per step, ndbl 4);
 //   decompress       the whole of ed25519.decompress_t (x-recovery: the
 //                    pow_p58 chain, the two equality tests, the sqrt(-1)
-//                    fix-up, the sign flip);
+//                    fix-up, the sign flip), one row a lane group;
 //   point_multiples  the 16-entry table 0P..15P, extended (msm_table,
 //                    feeding K3) or cached (the ladder's table of -A).
 //
 // Every field operation keeps the reference's op order and carry
-// schedule (field25519.cuh; field25519_lanes.cuh in point_ladder), so the
-// limbs equal the reference's limb for limb.
+// schedule (field25519.cuh; field25519_lanes.cuh in point_ladder and
+// decompress), so the limbs equal the reference's limb for limb.
 //
-// Layout of decompress and point_multiples: one warp per element (one
-// row), lane i holding limb i of every coordinate, as in K1 and K3.  The
-// alternative, one thread per element with all 32 limbs of each operand
-// in registers, needs no shuffles but ~130 registers for a multiply alone
-// and four coordinates plus temporaries across a point formula, which
-// would spill.  ptxas (CUDA 12.8, sm_90a; the report is in build.log):
-// decompress 143 registers, point_multiples 120, no spills, no stack.
-// What bounds them: a multiply is ~68 warp shuffles for ~36 int32
-// instructions per lane, and an SM issues one shuffle per clock against
-// 64 int32 operations, so these kernels are bound by shuffle issue and by
-// the latency of one warp's dependent chain, not by the int32 rate or by
-// bytes.
+// Layout of point_multiples: one warp per element (one row), lane i
+// holding limb i of every coordinate, as in K1 and K3.  The alternative,
+// one thread per element with all 32 limbs of each operand in registers,
+// needs no shuffles but ~130 registers for a multiply alone and four
+// coordinates plus temporaries across a point formula, which would spill.
+// ptxas (CUDA 12.8, sm_90a; the report is in build.log): 120 registers,
+// no spills, no stack.  What bounds it: a multiply is ~68 warp shuffles
+// for ~36 int32 instructions per lane, and an SM issues one shuffle per
+// clock against 64 int32 operations, so it is bound by shuffle issue and
+// by the latency of one warp's dependent chain, not by the int32 rate or
+// by bytes.
 //
-// point_ladder (field25519_lanes.cuh) also runs a row on one warp, as
-// four groups of 8 lanes: the groups run each formula phase's four
-// independent multiplies at once (~10 multiplies a step on a row's
-// critical path instead of 37), and a lane holds 4 limbs, so one shuffled
-// word (two limbs) feeds several products (34 shuffles a multiply instead
-// of 68).  On the H100 (PERF.md) it is bound by instruction issue: a lane
-// spends about two instructions a product (the unpacking, the x38 scale,
-// the carries), one warp's stream at a few rows, the SMs' issue rate at
-// 1024.  Its tables (4 MB shared and 8 MB per-row at B = 1024) stay in
-// device memory and L2; each step reads one 512-byte cached point a row.
+// point_ladder (field25519_lanes.cuh) runs a row on one warp, as four
+// groups of 8 lanes: the groups run each formula phase's four independent
+// multiplies at once (~10 multiplies a step on a row's critical path
+// instead of 37), and a lane holds 4 limbs, so one shuffled word (two
+// limbs) feeds several products (34 shuffles a multiply instead of 68).
+// On the H100 (PERF.md) it is bound by instruction issue: a lane spends
+// about two instructions a product (the unpacking, the x38 scale, the
+// carries), one warp's stream at a few rows, the SMs' issue rate at 1024.
+// Its tables (4 MB shared and 8 MB per-row at B = 1024) stay in device
+// memory and L2; each step reads one 512-byte cached point a row.
+//
+// decompress (field25519_lanes.cuh) has no independent products to spread
+// over groups, but many independent rows: one row a group of 8 lanes, four
+// rows a warp, at every row count.  Its chain is 255 squarings and 20
+// multiplies; the squaring forms 74 products a lane (mul(a, a)'s exact
+// coefficients from the 528 distinct products, doubled and scaled where
+// they wrap) against the multiply's 128, and the canonical forms walk
+// their carries and borrows over the group's 8 lanes.  A lane issues ~180
+// int32 instructions a squaring, so one warp a scheduler keeps the int32
+// pipe busy: 2048 rows (512 warps) take about as long as 16, all resident
+// at once (PERF.md has the registers, occupancy and times).
 #include <cuda_runtime.h>
 
 #include "field25519.cuh"
@@ -57,7 +67,7 @@ namespace {
 
 constexpr int kPt = 4 * 32;       // int32 values per point
 constexpr int kEntries = 16;      // point_multiples: 0P .. 15P
-constexpr int kThreads = 64;      // two warps (two rows) per block
+constexpr int kThreads = 64;      // two warps per block
 
 // d = -121665/121666 and sqrt(-1) mod p, canonical little-endian bytes.
 __constant__ int kD[32] = {
@@ -83,72 +93,6 @@ __device__ __forceinline__ void store_pt(int* base, const hk::Pt& p,
 __device__ __forceinline__ hk::Pt identity(int lane) {
   int one = lane == 0 ? 1 : 0;
   return hk::Pt{{0, one, one, 0}};
-}
-
-__device__ __forceinline__ int f_sqr(int a, int lane) {
-  return hk::f_mul(a, a, lane);
-}
-
-// Loops around point formulas and multiplies stay rolled (unroll 1): an
-// unrolled copy of each would multiply the code, not the speed.
-__device__ __forceinline__ int pow_2k(int x, int k, int lane) {
-#pragma unroll 1
-  for (int i = 0; i < k; ++i) x = f_sqr(x, lane);
-  return x;
-}
-
-// x^((p-5)/8) = x^(2^252 - 3) by the reference's addition chain
-// (field25519.pow_p58): 251 squarings and 11 multiplies.
-__device__ int pow_p58(int x, int lane) {
-  int x2 = hk::f_mul(f_sqr(x, lane), x, lane);
-  int x4 = hk::f_mul(pow_2k(x2, 2, lane), x2, lane);
-  int x5 = hk::f_mul(f_sqr(x4, lane), x, lane);
-  int x10 = hk::f_mul(pow_2k(x5, 5, lane), x5, lane);
-  int x20 = hk::f_mul(pow_2k(x10, 10, lane), x10, lane);
-  int x40 = hk::f_mul(pow_2k(x20, 20, lane), x20, lane);
-  int x50 = hk::f_mul(pow_2k(x40, 10, lane), x10, lane);
-  int x100 = hk::f_mul(pow_2k(x50, 50, lane), x50, lane);
-  int x200 = hk::f_mul(pow_2k(x100, 100, lane), x100, lane);
-  int x250 = hk::f_mul(pow_2k(x200, 50, lane), x50, lane);
-  return hk::f_mul(pow_2k(x250, 2, lane), x, lane);
-}
-
-// The reference's sequential carry: a lane-serial ripple in which every
-// lane follows the (warp-uniform) carry and lane i keeps byte i.
-// Returns the carry out of limb 31.
-__device__ __forceinline__ int ripple(int& x, int lane) {
-  int carry = 0, out = 0;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    int t = __shfl_sync(hk::kFullMask, x, i) + carry;
-    if (lane == i) out = t & 0xFF;
-    carry = t >> 8;
-  }
-  x = out;
-  return carry;
-}
-
-// x - p if x >= p, else x (x canonical bytes below 2^256): the
-// reference's borrow chain.
-__device__ __forceinline__ int cond_sub_p(int x, int lane) {
-  int borrow = 0, out = 0;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    int p_digit = i == 0 ? 237 : (i == 31 ? 127 : 255);
-    int d = __shfl_sync(hk::kFullMask, x, i) - p_digit - borrow;
-    borrow = d < 0 ? 1 : 0;
-    if (lane == i) out = d + (borrow << 8);
-  }
-  return borrow > 0 ? x : out;  // a borrow out means x < p
-}
-
-// Weak element -> canonical bytes, value in [0, p): field25519.canonical.
-__device__ int canonical(int x, int lane) {
-  int carry = ripple(x, lane);
-  if (lane == 0) x += 38 * carry;
-  carry = ripple(x, lane);
-  if (lane == 0) x += 38 * carry;
-  return cond_sub_p(cond_sub_p(x, lane), lane);
 }
 
 // One warp per row; rows * 32 threads in all.
@@ -180,40 +124,24 @@ __global__ void point_ladder_kernel(const int* __restrict__ table,
       out + row * kPt, steps, k, per_step, ln);
 }
 
-__global__ void decompress_kernel(const int* __restrict__ y_limbs,
-                                  const int* __restrict__ sign_bits,
-                                  int* __restrict__ out,
-                                  unsigned char* __restrict__ ok_out,
-                                  long long rows) {
-  long long row;
-  int lane;
-  if (!warp_row(rows, &row, &lane)) return;
-  const int y = y_limbs[row * 32 + lane];
-  const int sign = sign_bits[row];
-  const int one = lane == 0 ? 1 : 0;
-  int y2 = f_sqr(y, lane);
-  int u = hk::f_sub(y2, one, lane);
-  int v = hk::f_add(hk::f_mul(kD[lane], y2, lane), one, lane);
-  int v3 = hk::f_mul(f_sqr(v, lane), v, lane);
-  int v7 = hk::f_mul(f_sqr(v3, lane), v, lane);
-  int x = hk::f_mul(hk::f_mul(u, v3, lane),
-                    pow_p58(hk::f_mul(u, v7, lane), lane), lane);
-  int vxx = canonical(hk::f_mul(v, f_sqr(x, lane), lane), lane);
-  bool ok_direct = __all_sync(hk::kFullMask, vxx == canonical(u, lane));
-  bool ok_twist = __all_sync(hk::kFullMask,
-                             vxx == canonical(hk::f_neg(u, lane), lane));
-  int x_twist = hk::f_mul(x, kSqrtM1[lane], lane);
-  if (ok_twist) x = x_twist;
-  bool ok = ok_direct || ok_twist;
-  // Sign adjustment; x == 0 with sign 1 is invalid.
-  int xc = canonical(x, lane);
-  bool x_zero = __all_sync(hk::kFullMask, xc == 0);
-  int parity = __shfl_sync(hk::kFullMask, xc, 0) & 1;
-  if (parity != sign && !x_zero) x = hk::f_neg(x, lane);
-  ok = ok && !(x_zero && sign == 1);
-  hk::Pt p{{x, y, one, hk::f_mul(x, y, lane)}};
-  store_pt(out + row * kPt, p, lane);
-  if (lane == 0) ok_out[row] = ok ? 1 : 0;
+// decompress (field25519_lanes.cuh): one row a group of 8 lanes, four rows
+// a warp.  Rows not a multiple of 4: the last warp's idle groups
+// recompute the last row (every lane takes part in the shuffles and
+// ballots) and store nothing.
+__global__ void decompress_groups_kernel(const int* __restrict__ y_limbs,
+                                         const int* __restrict__ sign_bits,
+                                         int* __restrict__ out,
+                                         unsigned char* __restrict__ ok_out,
+                                         long long rows) {
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane / hk::lanes::G, l = lane % hk::lanes::G;
+  const long long row = warp * hk::lanes::kRowsPerWarp + g;
+  if (warp * hk::lanes::kRowsPerWarp >= rows) return;  // the whole warp
+  const long long r = row < rows ? row : rows - 1;
+  hk::lanes::decompress_row(y_limbs + r * 32, sign_bits[r], kD, kSqrtM1,
+                            out + r * kPt, ok_out + r, row < rows, g, l);
 }
 
 __global__ void point_multiples_kernel(const int* __restrict__ pts,
@@ -273,8 +201,12 @@ extern "C" int hk_decompress(const int* y_limbs, const int* sign_bits,
                              int* out, unsigned char* ok, long long rows,
                              void* stream) {
   if (rows > 0) {
-    decompress_kernel<<<blocks_for(rows), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    const long long warps = (rows + hk::lanes::kRowsPerWarp - 1) /
+                            hk::lanes::kRowsPerWarp;
+    decompress_groups_kernel<<<static_cast<unsigned>(
+                                   (warps * 32 + kThreads - 1) / kThreads),
+                               kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
         y_limbs, sign_bits, out, ok, rows);
   }
   return static_cast<int>(cudaGetLastError());

@@ -8,7 +8,9 @@ point-chain kernels (csrc/point_chain.cu), one launch per chain.
                    8-lane groups of one warp run each formula phase's
                    four independent multiplies at once, a lane holding
                    4 limbs
-  decompress       the whole of ed25519.decompress_t
+  decompress       the whole of ed25519.decompress_t, on
+                   csrc/field25519_lanes.cuh too: one row a group of 8
+                   lanes, four rows a warp, with a dedicated squaring
   point_multiples  the 16-entry table 0P..15P, extended (msm_table) or
                    cached (the per-signature ladder's table of -A)
 

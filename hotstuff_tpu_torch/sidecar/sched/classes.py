@@ -100,9 +100,11 @@ class ClassQueue:
 
     def __init__(self, cap_sigs: int, lock: threading.Condition,
                  tenant_cap_sigs: int | None = None,
-                 quantum_sigs: int | None = None):
+                 quantum_sigs: int | None = None,
+                 per_request: bool = False):
         self.lanes = TenantLanes(
-            DRR_QUANTUM_SIGS if quantum_sigs is None else quantum_sigs)
+            DRR_QUANTUM_SIGS if quantum_sigs is None else quantum_sigs,
+            per_request=per_request)
         self.cap_sigs = cap_sigs
         self.tenant_cap_sigs = cap_sigs if tenant_cap_sigs is None \
             else min(tenant_cap_sigs, cap_sigs)

@@ -139,11 +139,16 @@ class Scheduler:
         self._cond = threading.Condition()
         lat_share, blk_share = size_tenant_caps(
             latency_cap_sigs, bulk_cap_sigs, committee)
+        # The host path verifies record by record, so a launch's time
+        # grows with its size: a host registry launches one request at
+        # a time and turns the tenant ring after each.
+        host = self.shapes.use_host
         self._queues = {
             LATENCY: ClassQueue(latency_cap_sigs, self._cond,
-                                tenant_cap_sigs=lat_share),
+                                tenant_cap_sigs=lat_share,
+                                per_request=host),
             BULK: ClassQueue(bulk_cap_sigs, self._cond,
-                             tenant_cap_sigs=blk_share),
+                             tenant_cap_sigs=blk_share, per_request=host),
         }
 
     # -- admission (connection threads) -------------------------------------
@@ -296,11 +301,14 @@ class Scheduler:
         cap (or a tick's quota, never above it).  The head always ships
         (an oversized single request slices inside the engine); a later
         head that would overflow the budget stays queued and leads the
-        next launch (carry-over)."""
-        cap = self.shapes.launch_cap if cap is None \
-            else min(cap, self.shapes.launch_cap)
+        next launch (carry-over).  A host registry's launch is its head
+        alone; a cadence tick still fills its quota."""
         items = [q._pop_locked()]
         total = len(items[0])
+        if cap is None and self.shapes.use_host:
+            return items, total
+        cap = self.shapes.launch_cap if cap is None \
+            else min(cap, self.shapes.launch_cap)
         while (nxt := q._head_locked()) is not None and not nxt.is_bls:
             nxt_len = len(nxt)
             if total + nxt_len > cap:

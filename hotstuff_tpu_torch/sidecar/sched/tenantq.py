@@ -12,6 +12,10 @@ each class:
 * ``pop_next_locked`` serves the active tenants in deficit round-robin
   order, each draining up to ``quantum_sigs`` records per round; with
   one tenant queued the ring never rotates and the lane is a FIFO;
+* with ``per_request`` (a host-mode engine's queues; the port's own,
+  the reference drains quanta there too) each turn is one request and
+  the least recently served tenant goes first, so a tenant that queues
+  waits behind no more than the request in progress;
 * ``ClassQueue`` checks the offering tenant's lane against a per-tenant
   cap before the class cap, so a flooding tenant sheds on its own share.
 """
@@ -31,12 +35,13 @@ DRR_QUANTUM_SIGS = 2048
 class _Lane:
     """One tenant's private FIFO inside a class queue."""
 
-    __slots__ = ("items", "sigs", "deficit")
+    __slots__ = ("items", "sigs", "deficit", "served")
 
     def __init__(self):
         self.items = deque()
         self.sigs = 0
         self.deficit = 0
+        self.served = 0     # the pop count when this lane was last served
 
 
 class TenantLanes:
@@ -46,13 +51,17 @@ class TenantLanes:
     condition.  ``order`` holds the tenants with queued items, in ring
     order; ``order[0]`` is the tenant DRR currently serves."""
 
-    __slots__ = ("lanes", "order", "sigs", "quantum_sigs")
+    __slots__ = ("lanes", "order", "sigs", "quantum_sigs", "per_request",
+                 "pops")
 
-    def __init__(self, quantum_sigs: int = DRR_QUANTUM_SIGS):
+    def __init__(self, quantum_sigs: int = DRR_QUANTUM_SIGS,
+                 per_request: bool = False):
         self.lanes: dict[str, _Lane] = {}
         self.order: deque[str] = deque()
         self.sigs = 0
         self.quantum_sigs = max(1, quantum_sigs)
+        self.per_request = per_request
+        self.pops = 0
 
     def _offer_locked(self, pending) -> None:
         """Append to the offering tenant's lane (admission checks are the
@@ -71,6 +80,10 @@ class TenantLanes:
         the serving tenant its quantum lazily on first peek of a round."""
         if not self.order:
             return None
+        if self.per_request and len(self.order) > 1:
+            first = min(self.order, key=lambda t: self.lanes[t].served)
+            self.order.remove(first)
+            self.order.appendleft(first)
         lane = self.lanes[self.order[0]]
         if lane.deficit <= 0:
             lane.deficit = self.quantum_sigs
@@ -88,6 +101,8 @@ class TenantLanes:
         lane.sigs -= len(p)
         lane.deficit -= len(p)
         self.sigs -= len(p)
+        self.pops += 1
+        lane.served = self.pops
         if not lane.items:
             self.order.popleft()
             lane.deficit = 0

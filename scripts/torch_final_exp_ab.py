@@ -1,35 +1,74 @@
 #!/usr/bin/env python3
-"""final_exp and the BLS pairing check on the card, in one or more
-checkouts of the repository, each in a process of its own, so that two
-commits compare on one card in one call:
+"""A hand-written kernel on the card, in one or more checkouts of the
+repository, each in a process of its own, so that two commits compare
+on one card in one call:
 
-    python3 scripts/torch_final_exp_ab.py PARENT . . PARENT
+    python3 scripts/torch_final_exp_ab.py [--kernel NAME] PARENT . . PARENT
 
 For each root, in the order given, the child process builds the
-kernels from that root's sources (``build.load()``), makes the Miller
-lines of a valid aggregate of three messages (four pairings, seeded
-keys) with that root's host code, and prints one JSON line:
-``final_exp`` in ms a launch (ten launches replayed in one CUDA graph)
-at P = 2 (the last two pairings: a statement that does not hold), 4,
-8 and 68 (the four tiled: it holds), and the device span of
-``ops/bls381.pairings_check`` on 2 and 68 pairings (CUDA events around
-the call, the median of five, as ``chip_smoke.py`` phase 8 takes it),
-with the root's ``build.source_hash()``.  The last line lists every
-run and the card's name and power limit.  Exits 2 without a card.
+kernels from that root's sources (``build.load()``) and prints one JSON
+line with the root's ``build.source_hash()``.  The last line lists
+every run and the card's name and power limit.  Exits 2 without a card.
+
+``--kernel final_exp`` (the default): the child makes the Miller lines
+of a valid aggregate of three messages (four pairings, seeded keys)
+with that root's host code and times ``final_exp`` in ms a launch (ten
+launches replayed in one CUDA graph) at P = 2 (the last two pairings: a
+statement that does not hold), 4, 8 and 68 (the four tiled: it holds),
+and the device span of ``ops/bls381.pairings_check`` on 2 and 68
+pairings (CUDA events around the call, the median of five, as
+``chip_smoke.py`` phase 8 takes it).
+
+``--kernel decompress``: the child holds ``decompress`` exactly to its
+plain version at 16, 256 and 2048 rows (``chip_smoke.py`` phase 4's
+rows: real encodings, random bytes and the edge rows) and times it
+there, in ms a launch in a CUDA graph of twenty and in ms a call from
+Python; reports the decompress kernels' registers, stack and spills
+(ptxas), their resident blocks an SM at 32 to 256 threads a block
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, from a small
+program built on the root's ``point_chain.cu``) and their warp
+shuffles by loop depth (cuobjdump); and the device busy time of a QC
+of 67 through the RLC program (``eddsa.verify_batch_rlc_pack``, warm,
+torch.profiler's device events, five runs), as ``chip_smoke.py`` phase
+6 takes it.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = (2, 4, 8, 68)
+DECOMPRESS_ROWS = (16, 256, 2048)
+OCCUPANCY_BLOCKS = (32, 64, 128, 256)
 
 
-def one(root: str) -> dict:
-    sys.path.insert(0, os.path.abspath(root))
+def graph_ms(fn, iters=10):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def one_final_exp(root: str) -> dict:
     import numpy as np
     import torch
 
@@ -48,23 +87,6 @@ def one(root: str) -> dict:
 
     def tiled(n):
         return lines4.repeat(n // 4 + 1, 1, 1, 1, 1)[-n:].contiguous()
-
-    def graph_ms(fn, iters=10):
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
 
     out = {"root": root, "sources": build.source_hash()}
     for n in SHAPES:
@@ -90,12 +112,123 @@ def one(root: str) -> dict:
     return out
 
 
+def smoke_module():
+    """This checkout's chip_smoke.py (its input rows and report
+    parsers; they import the package only inside their functions, so
+    they run on the root's)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def decompress_occupancy(root: str, build) -> dict:
+    """Resident blocks an SM of each decompress kernel in the root's
+    point_chain.cu at each block size, from a program that includes the
+    source (its kernels sit in the program's own anonymous namespace)."""
+    src = os.path.join(os.path.abspath(root), "hotstuff_tpu_torch", "ops",
+                       "kern", "csrc", "point_chain.cu")
+    with open(src) as f:
+        kernels = sorted(set(re.findall(
+            r"__global__ void (decompress\w*)\(", f.read())))
+    calls = "".join(
+        f'  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, {k}, {t}, 0);'
+        f'\n  std::printf("{k} {t} %d\\n", b);\n'
+        for k in kernels for t in OCCUPANCY_BLOCKS)
+    work = os.path.join(REPO, "build", "ab", build.source_hash())
+    os.makedirs(work, exist_ok=True)
+    prog = os.path.join(work, "occupancy.cu")
+    with open(prog, "w") as f:
+        f.write(f'#include <cstdio>\n#include "{src}"\n'
+                f"int main() {{\n  int b = 0;\n{calls}  return 0;\n}}\n")
+    exe = os.path.join(work, "occupancy")
+    subprocess.run([build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", prog, "-o", exe], check=True,
+                   capture_output=True, timeout=600)
+    text = subprocess.run([exe], check=True, capture_output=True, text=True,
+                          timeout=60).stdout
+    out: dict = {}
+    for line in text.splitlines():
+        k, t, b = line.split()
+        out.setdefault(k, {})[f"blocks_at_{t}"] = int(b)
+        out[k][f"warps_at_{t}"] = int(b) * int(t) // 32
+    return out
+
+
+def qc_busy_ms(dev) -> dict:
+    """A QC of 67 through the RLC program, warm: the device busy time of
+    each of five runs (torch.profiler's device events) and the median."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hotstuff_tpu_torch import bench
+    from hotstuff_tpu_torch.crypto import eddsa
+
+    msgs, pks, sigs = bench.make_batch(1, 67)
+    pack = eddsa.verify_batch_rlc_pack
+    for _ in range(3):
+        if not bool(pack(msgs, pks, sigs, device=dev)()().all()):
+            raise SystemExit("a valid QC of 67 failed")
+    cuda = torch.autograd.DeviceType.CUDA
+    runs = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pack(msgs, pks, sigs, device=dev)()()
+            torch.cuda.synchronize()
+        runs.append(sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == cuda) / 1e3)
+    return {"median": sorted(runs)[2], "runs": runs}
+
+
+def one_decompress(root: str) -> dict:
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.ops.kern import build
+    from hotstuff_tpu_torch.ops.kern import point_chain as PC
+
+    smoke = smoke_module()
+    dev = torch.device("cuda", 0)
+    build.load()
+    out = {"root": root, "sources": build.source_hash()}
+    rng = np.random.default_rng(20261018)
+    for n in DECOMPRESS_ROWS:
+        y, sign = smoke.decompress_inputs(rng, n, dev)
+        err = smoke.max_abs_err(PC.decompress(y, sign),
+                                PC.decompress_plain(y, sign))
+        if err != 0:
+            raise SystemExit(f"decompress at {n} rows differs from its "
+                             f"plain version (max abs err {err})")
+        fn = lambda: PC.decompress(y, sign)  # noqa: E731
+        out[f"decompress_{n}_graph_ms"] = graph_ms(fn, 20)
+        out[f"decompress_{n}_ms"] = smoke.time_ms(fn, 20)
+    out["ptxas"] = {k: v for k, v in
+                    smoke.ptxas_report(build.build_log()).items()
+                    if k.startswith("decompress")}
+    out["occupancy"] = decompress_occupancy(root, build)
+    _, depths = smoke.sass_shuffles()
+    out["shuffles_by_depth"] = {k: v for k, v in depths.items()
+                                if k.startswith("decompress")}
+    out["qc67_busy_ms"] = qc_busy_ms(dev)
+    return out
+
+
+KERNELS = {"final_exp": one_final_exp, "decompress": one_decompress}
+
+
 def main(argv) -> int:
     if argv[:1] == ["--one"]:
-        print(json.dumps(one(argv[1])), flush=True)
+        sys.path.insert(0, os.path.abspath(argv[2]))
+        print(json.dumps(KERNELS[argv[1]](argv[2])), flush=True)
         return 0
-    if not argv:
-        print("usage: torch_final_exp_ab.py ROOT...", file=sys.stderr)
+    kernel = "final_exp"
+    if argv[:1] == ["--kernel"] and len(argv) > 1:
+        kernel, argv = argv[1], argv[2:]
+    if not argv or kernel not in KERNELS:
+        print(f"usage: torch_final_exp_ab.py [--kernel "
+              f"{'|'.join(KERNELS)}] ROOT...", file=sys.stderr)
         return 2
     import torch
 
@@ -110,14 +243,15 @@ def main(argv) -> int:
     runs = []
     for root in argv:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", root], capture_output=True,
+                               "--one", kernel, root], capture_output=True,
                               text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, flush=True)
             return 1
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
-    print(json.dumps({"runs": runs, "card": card}), flush=True)
+    print(json.dumps({"kernel": kernel, "runs": runs, "card": card}),
+          flush=True)
     return 0
 
 

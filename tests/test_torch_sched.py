@@ -428,3 +428,48 @@ def test_shape_registry_one_card_capacity_and_routes():
     assert host.route(64) == psched.PATH_HOST and host.bucket_capacity(5) == 5
     assert psched.ShapeRegistry(committee=100).snapshot() == {
         "launch_cap": 1024, "committee": 100}
+
+
+def _ids(launch):
+    return [p.request.request_id for p in launch.items]
+
+
+@pytest.mark.parametrize("refill", [False, True],
+                         ids=["backlogged", "refilled"])
+def test_host_registry_launches_one_request_least_served_first(clock,
+                                                                 refill):
+    """A host registry (the host path verifies record by record) launches
+    one request at a time and serves the least recently served tenant
+    first: a victim that queues behind a greedy tenant's backlog, or
+    behind a greedy lane that emptied and refilled first, waits for no
+    more than the request in progress.  A device registry still
+    coalesces the backlog into one launch, as the reference does."""
+    def run(host):
+        s = _scheduler("port", clock,
+                       shapes=psched.ShapeRegistry(use_host=host))
+        for i in range(1 if refill else 3):
+            s.offer(_req(32, 1 + i), None, tenant="greedy")
+        first = _ids(s.next_launch(block=False))
+        if refill:
+            s.offer(_req(32, 2), None, tenant="greedy")
+            s.offer(_req(32, 3), None, tenant="greedy")
+        s.offer(_req(4, 9), None, tenant="victim")
+        rest = []
+        while (launch := s.next_launch(block=False)) is not None:
+            rest.append(_ids(launch))
+        return [first] + rest
+
+    assert run(host=True) == [[1], [9], [2], [3]]
+    assert run(host=False) == ([[1], [2, 3, 9]] if refill
+                               else [[1, 2, 3], [9]])
+
+
+def test_host_registry_ticks_still_fill_their_quota(clock):
+    """Cadence ticks keep coalescing on a host registry: a tick drains
+    the backlog up to its quota, least recently served tenant first."""
+    s = _scheduler("port", clock, shapes=psched.ShapeRegistry(use_host=True))
+    for i in range(3):
+        s.offer(_req(32, 1 + i), None, tenant="greedy")
+    s.offer(_req(4, 9), None, tenant="victim")
+    assert _ids(s.next_tick(80)) == [1, 9, 2]
+    assert _ids(s.next_tick(80)) == [3]
