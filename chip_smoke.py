@@ -25,9 +25,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
      rows (a bulk batch, a QC of 67, a per-signature launch) on real
      encodings, random bytes and the edge rows (y = 0, 1 and p - 1
      with either sign, 2, and y >= p: p, p + 1, 2^255 - 1), each beside
-     its bounds in operations and in warp shuffles; the point_ladder
-     and decompress kernels that spill or use a stack frame fail the
-     run in phase 2;
+     its bounds in operations and in warp shuffles; point_multiples
+     at 8 and 1024 rows cached from -P (the per-signature tables of a
+     committee launch and of a headline sub-batch) and 256 and 2048
+     extended (the RLC tables of a QC of 67 and of a bulk batch) on
+     real points, random weak limbs, the identity and all-511 and
+     all-0 rows, each beside its bounds in operations and in warp
+     shuffles; the point_ladder, decompress and point_multiples
+     kernels that spill or use a stack frame fail the run in phase 2;
   5. serve the main path through the port's verify sidecar on the card:
      QC verifies of 67 votes from a 100-key committee (the RLC program),
      a QC with a forged vote and a non-canonical S (RLC with bisection),
@@ -578,6 +583,46 @@ def decompress_inputs(rng, n: int, dev):
     return E.split_y_sign(torch.from_numpy(arr).to(dev))
 
 
+# point_multiples at the verify paths' shapes, (rows, cached, negate): the
+# per-signature program's cached tables of -A for 1024 rows (a headline
+# sub-batch, a bulk of 1024; 16 launches a headline round) and 8 (a
+# committee's 3-8 votes), the RLC program's extended MSM tables of 256
+# points (a QC of 67, bucket 128) and 2048 (a bulk of 1024).
+MULTIPLES_SHAPES = ((2048, False, False), (1024, True, True),
+                    (8, True, True), (256, False, False))
+
+
+def multiples_inputs(rng, n: int, dev):
+    """(n, 4, 32) int32 extended points for point_multiples (n >= 5):
+    real points (decompressed encodings of up to 64 distinct multiples
+    of the base point, tiled) first, then an eighth of the rows (at
+    least one) of random weak limbs in [0, 512), and the edge rows last:
+    the identity, a row of all-511 limbs (the top of the weak form) and
+    a row of all-0 limbs."""
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.crypto import ref_ed25519 as ref
+    from hotstuff_tpu_torch.ops import ed25519 as E
+    from hotstuff_tpu_torch.ops.kern import point_chain as PC
+
+    n_rand = max(1, n // 8)
+    n_real = n - n_rand - 3
+    enc = [ref.encode_point(ref.scalar_mult(int(k), ref.B))
+           for k in rng.integers(1, 2**62, min(64, n_real))]
+    real = np.frombuffer(b"".join(enc), np.uint8).reshape(-1, 32)
+    real = np.tile(real, (n_real // len(real) + 1, 1))[:n_real]
+    pts, ok = PC.decompress(*E.split_y_sign(torch.from_numpy(real).to(dev)))
+    if not bool(ok.all()):
+        raise ValueError("a base point multiple did not decompress")
+    rand = rng.integers(0, 512, (n_rand, 4, 32)).astype(np.int32)
+    edge = torch.stack([E.identity_ext((), dev),
+                        torch.full((4, 32), 511, dtype=torch.int32,
+                                   device=dev),
+                        torch.zeros((4, 32), dtype=torch.int32, device=dev)])
+    return torch.cat([pts, torch.from_numpy(rand).to(dev), edge]).contiguous()
+
+
 def max_abs_err(a, b) -> int:
     """Largest absolute difference; tuples compare element by element
     (a shape mismatch counts as a difference of -1)."""
@@ -780,13 +825,44 @@ def kernel_phase(dev, rng, shuffles, depths):
     pts, _ = PC.decompress(y_limbs, sign)
     pts = pts[:1792].contiguous()                # real points only
 
-    # point_multiples: the RLC bulk batch's 2048-point MSM table.
-    b = 2048
-    mpts = pts.repeat(2, 1, 1)[:b].contiguous()
-    record("point_multiples", chain_src, rep1, f"({b}, 4, 32)",
-           PC.point_multiples, PC.point_multiples_plain,
-           (mpts, False, False), b * pt_bytes * (1 + 16),
-           b * OPS_MULTIPLES_ROW, 20)
+    # point_multiples at the paths' shapes (MULTIPLES_SHAPES), each on real
+    # points, random weak limbs and the edge rows, beside its bound in
+    # operations and in warp shuffles: one warp a row, its loop the 14
+    # additions.  The cached form adds 14 to_cached: entry 1's is
+    # to_cached(P), already counted, and entry 0's is the identity's, a
+    # constant.  -P adds two negations.
+    def multiples_case(n, cached, negate):
+        form = ("cached, from -P" if negate else "cached") if cached else (
+            "extended, from -P" if negate else "extended")
+        ops = (OPS_MULTIPLES_ROW + (14 * OPS_TO_CACHED if cached else 0)
+               + (2 * OPS_FIELD_SUB if negate else 0))
+        args = ("point_multiples", f"({n}, 4, 32) {form}",
+                PC.point_multiples, PC.point_multiples_plain,
+                (multiples_inputs(rng, n, dev), cached, negate),
+                n * pt_bytes * (1 + 16), n * ops, 20)
+        depth = depths.get(f"point_multiples_kernel<{int(cached)}>")
+        extra = {"shfl_bound_ms": None}
+        if depth and len(depth) <= 2:
+            per_row = sum(k * t for k, t in zip(depth, (1, 14)))
+            extra = {"shuffles_per_row": per_row,
+                     "shfl_bound_ms": (n * per_row
+                                       / PEAK_WARP_SHUFFLES_PER_S * 1e3)}
+        print(f"point_multiples ({n}, 4, 32) {form}: "
+              f"{extra.get('shuffles_per_row')} warp shuffles a row "
+              f"(cuobjdump by loop depth {depth}), shuffle bound "
+              f"{extra['shfl_bound_ms']} ms", flush=True)
+        return args, extra
+
+    # The main row: the first shape, the RLC bulk's 2048 extended rows, as
+    # in every slice before; the others under rows<n>_ keys.
+    for i, (n, cached, negate) in enumerate(MULTIPLES_SHAPES):
+        args, extra = multiples_case(n, cached, negate)
+        if i == 0:
+            record(args[0], chain_src, rep1, *args[1:])
+            rows[-1].update(extra)
+        else:
+            rows[-1].update({f"rows{n}_{k}": v for k, v in
+                             dict(measure(*args), **extra).items()})
 
     def ladder_case(label, table, digits, ndbl):
         """point_ladder at one shape, held exactly to its plain version
@@ -2161,6 +2237,12 @@ HARNESS_FLAGS = "--port {port} --committee 4 --client-rate 1000 --warm-rlc " \
     "--trace {trace}"
 
 
+# What follows the interpreter in a sidecar's command line
+# (scripts/torch_guard_probe.py puts a wrapper here that logs the wall of
+# each guarded launch).
+SIDECAR_CMD = ("-m", "hotstuff_tpu_torch.sidecar")
+
+
 def start_sidecar(flags: str, log_name: str, env=None):
     """Boot ``python -m hotstuff_tpu_torch.sidecar`` with ``flags`` (a
     free port filled into ``{port}``) in a process of its own, its output
@@ -2181,7 +2263,7 @@ def start_sidecar(flags: str, log_name: str, env=None):
     t0 = time.monotonic()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "hotstuff_tpu_torch.sidecar", *argv],
+            [sys.executable, *SIDECAR_CMD, *argv],
             cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
             env={**os.environ, **(env or {})})
     while True:
@@ -2333,8 +2415,9 @@ def guard_phase() -> None:
         GUARD_FLAGS, "sidecar-guard.log", GUARD_ENV)
 
     def log_tail() -> str:
+        # Long enough to hold the guard's stack of the last overrun.
         with open(log_path) as f:
-            return f.read()[-4000:]
+            return f.read()[-8000:]
 
     def check(ok: bool, what: str) -> None:
         if not ok:
@@ -4392,10 +4475,11 @@ def main() -> int:
                 or "entry function" in line):
             print("  ptxas:", line.strip(), flush=True)
 
-    # point_ladder's and decompress's kernels must keep every value in
-    # registers.
+    # The point-chain kernels (point_ladder, decompress, point_multiples)
+    # must keep every value in registers.
     for name, rep in sorted(ptxas_report(build.build_log()).items()):
-        if not name.startswith(("point_ladder", "decompress")):
+        if not name.startswith(("point_ladder", "decompress",
+                                "point_multiples")):
             continue
         print(f"point-chain kernel {name}: {rep}", flush=True)
         if (rep.get("stack") or rep.get("spill_stores")

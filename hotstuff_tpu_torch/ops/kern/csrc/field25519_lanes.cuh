@@ -1,13 +1,13 @@
 // GF(2^255 - 19) on lane groups: the field arithmetic, point formulas and
-// row loop of point_ladder (point_chain.cu), and the squaring and
-// canonical form of decompress, whose rows each run on one group, four
-// rows a warp.  field25519.cuh keeps the one-limb-a-lane functions of
-// the other kernels.
+// row loops of point_ladder and point_multiples (point_chain.cu), and the
+// squaring and canonical form of decompress, whose rows each run on one
+// group, four rows a warp.  field25519.cuh keeps the one-limb-a-lane
+// functions of the other kernels.
 //
-// Layout (point_ladder): one warp a row, in four groups of G = 8 lanes.
-// A group holds one field element, lane l of the group holding limbs
-// 4l .. 4l + 3 of the (..., 32) int32 radix-2^8 weak form (every limb
-// < 2^9).  Each point
+// Layout (point_ladder, point_multiples): one warp a row, in four groups
+// of G = 8 lanes.  A group holds one field element, lane l of the group
+// holding limbs 4l .. 4l + 3 of the (..., 32) int32 radix-2^8 weak form
+// (every limb < 2^9).  Each point
 // formula (dbl, add_cached) is two phases of four independent multiplies,
 // and group g runs product g of each phase, then takes the other groups'
 // products by warp shuffles, so a step's critical path is ~10 multiplies,
@@ -512,6 +512,90 @@ __device__ __forceinline__ void ladder_row(const int* trow, const int* drow,
   store_fe(orow + ln.g * 32, pick(ln.g, acc.x, acc.y, acc.z, acc.t), ln.l);
 }
 
+// This lane's limbs of a row of 32 (no alignment asked).
+__device__ __forceinline__ Fe load_limbs(const int* row, int l) {
+  Fe x;
+#pragma unroll
+  for (int v = 0; v < L; ++v) x.v[v] = row[L * l + v];
+  return x;
+}
+
+__device__ __forceinline__ Fe select(bool p, const Fe& a, const Fe& b) {
+  Fe r;
+#pragma unroll
+  for (int v = 0; v < L; ++v) r.v[v] = p ? a.v[v] : b.v[v];
+  return r;
+}
+
+// One entry of point_multiples' table: group g stores coordinate g.
+// Extended: (X, Y, Z, T).  Cached: Y+X, Y-X and Z here, every group
+// forming the sums (all lanes shuffle together); group 3's T * 2d comes
+// later (multiples_row).
+template <bool kCached>
+__device__ __forceinline__ void multiples_entry(int* entry, const Point& e,
+                                                const Lane& ln) {
+  if (kCached) {
+    const Fe ypx = add(e.y, e.x, ln.l);
+    const Fe ymx = sub(e.y, e.x, ln.l);
+    if (ln.g < 3) {
+      store_fe(entry + ln.g * 32, pick(ln.g, ypx, ymx, e.z, e.z), ln.l);
+    }
+  } else {
+    store_fe(entry + ln.g * 32, pick(ln.g, e.x, e.y, e.z, e.t), ln.l);
+  }
+}
+
+// One row of point_multiples (point_chain.cu): the 16-entry table 0P..15P
+// of the extended point at `prow` (built from -P when `negate`), op for
+// op the reference's msm_table and the per-signature ladder's table of -A:
+// entry 0 the identity, entry 1 P, entry i = entry i - 1 + cached(P) for
+// i = 2..15, each in extended form or, with kCached, cached form.  `k2d`
+// is 2d's canonical limbs; `orow` gets (16, 4, 32) int32.  Every lane of
+// the warp calls it together.
+//
+// Each group takes coordinate g ^ 1 of cached(P), the factor of its
+// first product in every add_cached (ladder_row's q), so the 14 additions
+// are two mul4 phases each.  The cached form's T * 2d: group g keeps the
+// T of entries 4s + g (s < 4) as the loop passes them, then runs its four
+// products (the four groups at once) and stores them; no other group
+// needs them, so no exchange.
+template <bool kCached>
+__device__ __forceinline__ void multiples_row(const int* prow, int* orow,
+                                              bool negate, const int* k2d,
+                                              const Lane& ln) {
+  const int l = ln.l;
+  Point p{load_limbs(prow, l), load_limbs(prow + 32, l),
+          load_limbs(prow + 64, l), load_limbs(prow + 96, l)};
+  p.x = select(negate, neg(p.x, l), p.x);  // formed either way: the
+  p.t = select(negate, neg(p.t, l), p.t);  // shuffles of every lane
+  const Fe k = load_limbs(k2d, l);
+  // cached(P) = (Y+X, Y-X, Z, 2dT): coordinate g ^ 1 for group g.
+  const Fe q = pick(ln.g, sub(p.y, p.x, l), add(p.y, p.x, l), mul(p.t, k, l),
+                    p.z);
+  Point e{};
+  e.y.v[0] = e.z.v[0] = l == 0 ? 1 : 0;  // the identity (0, 1, 1, 0)
+  multiples_entry<kCached>(orow, e, ln);
+  multiples_entry<kCached>(orow + kPtInts, p, ln);
+  Fe t[4] = {};  // kCached: T of entries 4s + g; entry 0's is 0
+  t[0] = select(ln.g == 1, p.t, t[0]);
+  e = p;
+#pragma unroll 1
+  for (int i = 2; i < 16; ++i) {
+    e = add_cached(e, q, ln);
+    multiples_entry<kCached>(orow + i * kPtInts, e, ln);
+    if (kCached) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) t[s] = select(i == 4 * s + ln.g, e.t, t[s]);
+    }
+  }
+  if (kCached) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      store_fe(orow + (4 * s + ln.g) * kPtInts + 96, mul(t[s], k, l), l);
+    }
+  }
+}
+
 // decompress (point_chain.cu): ed25519.decompress_t for one row on one
 // group, four rows a warp.
 constexpr int kRowsPerWarp = 32 / G;
@@ -526,13 +610,6 @@ struct PowStep {
 static __constant__ PowStep kPowSteps[11] = {
     {1, 0, 1},  {2, 1, -1}, {1, 0, 2},    {5, 2, 3},   {10, 3, 4}, {20, 4, -1},
     {10, 3, 5}, {50, 5, 6}, {100, 6, -1}, {50, 5, -1}, {2, 0, -1}};
-
-__device__ __forceinline__ Fe select(bool p, const Fe& a, const Fe& b) {
-  Fe r;
-#pragma unroll
-  for (int v = 0; v < L; ++v) r.v[v] = p ? a.v[v] : b.v[v];
-  return r;
-}
 
 // x^((p-5)/8) = x^(2^252 - 3): 251 squarings and 11 multiplies, op for op
 // the reference's chain.  One loop of steps around one loop of squarings
@@ -563,14 +640,6 @@ __device__ __forceinline__ bool equal(const Fe& a, const Fe& b, int g) {
 #pragma unroll
   for (int v = 0; v < L; ++v) same = same && a.v[v] == b.v[v];
   return group_all(same, g);
-}
-
-// This lane's limbs of a row of 32 (no alignment asked).
-__device__ __forceinline__ Fe load_limbs(const int* row, int l) {
-  Fe x;
-#pragma unroll
-  for (int v = 0; v < L; ++v) x.v[v] = row[L * l + v];
-  return x;
 }
 
 // One row of decompress, op for op the reference's decompress_t: the

@@ -21,21 +21,9 @@
 //   point_multiples  the 16-entry table 0P..15P, extended (msm_table,
 //                    feeding K3) or cached (the ladder's table of -A).
 //
-// Every field operation keeps the reference's op order and carry
-// schedule (field25519.cuh; field25519_lanes.cuh in point_ladder and
-// decompress), so the limbs equal the reference's limb for limb.
-//
-// Layout of point_multiples: one warp per element (one row), lane i
-// holding limb i of every coordinate, as in K1 and K3.  The alternative,
-// one thread per element with all 32 limbs of each operand in registers,
-// needs no shuffles but ~130 registers for a multiply alone and four
-// coordinates plus temporaries across a point formula, which would spill.
-// ptxas (CUDA 12.8, sm_90a; the report is in build.log): 120 registers,
-// no spills, no stack.  What bounds it: a multiply is ~68 warp shuffles
-// for ~36 int32 instructions per lane, and an SM issues one shuffle per
-// clock against 64 int32 operations, so it is bound by shuffle issue and
-// by the latency of one warp's dependent chain, not by the int32 rate or
-// by bytes.
+// All three run on field25519_lanes.cuh's lane groups and keep the
+// reference's op order and carry schedule, so the limbs equal the
+// reference's limb for limb.
 //
 // point_ladder (field25519_lanes.cuh) runs a row on one warp, as four
 // groups of 8 lanes: the groups run each formula phase's four independent
@@ -58,6 +46,15 @@
 // int32 instructions a squaring, so one warp a scheduler keeps the int32
 // pipe busy: 2048 rows (512 warps) take about as long as 16, all resident
 // at once (PERF.md has the registers, occupancy and times).
+//
+// point_multiples (field25519_lanes.cuh) is point_ladder's layout: one
+// warp a row in four groups of 8 lanes, each of the 14 additions two mul4
+// phases, group g storing coordinate g of each entry (one 512-byte store
+// a warp), the cached form's 16 products T * 2d as four group-split
+// products after the loop.  A row shuffles ~1,360 words (~1,500 cached),
+// so at 2048 rows the shuffle bound is half the int32 one.  Like
+// point_ladder it is bound by instruction issue: the SMs' rate at
+// 1024-2048 rows, one warp's chain of 14 additions at a few rows.
 #include <cuda_runtime.h>
 
 #include "field25519.cuh"
@@ -76,24 +73,6 @@ __constant__ int kD[32] = {
 __constant__ int kSqrtM1[32] = {
     176, 160, 14, 74, 39, 27, 238, 196, 120, 228, 47, 173, 6, 24, 67, 47,
     167, 215, 251, 61, 153, 0, 77, 43, 11, 223, 193, 79, 128, 36, 131, 43};
-
-__device__ __forceinline__ hk::Pt load_pt(const int* base, int lane) {
-  hk::Pt p;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) p.c[c] = base[c * 32 + lane];
-  return p;
-}
-
-__device__ __forceinline__ void store_pt(int* base, const hk::Pt& p,
-                                         int lane) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) base[c * 32 + lane] = p.c[c];
-}
-
-__device__ __forceinline__ hk::Pt identity(int lane) {
-  int one = lane == 0 ? 1 : 0;
-  return hk::Pt{{0, one, one, 0}};
-}
 
 // One warp per row; rows * 32 threads in all.
 __device__ __forceinline__ bool warp_row(long long rows, long long* row,
@@ -144,30 +123,19 @@ __global__ void decompress_groups_kernel(const int* __restrict__ y_limbs,
                             out + r * kPt, ok_out + r, row < rows, g, l);
 }
 
+// point_multiples (field25519_lanes.cuh): one warp a row, two rows a
+// block of 64 threads; one kernel per output form (0 extended, 1 cached).
+template <bool kCached>
 __global__ void point_multiples_kernel(const int* __restrict__ pts,
                                        int* __restrict__ out,
-                                       long long rows, int cached,
-                                       int negate) {
+                                       long long rows, int negate) {
   long long row;
   int lane;
   if (!warp_row(rows, &row, &lane)) return;
-  hk::Pt p = load_pt(pts + row * kPt, lane);
-  if (negate) {
-    p.c[0] = hk::f_neg(p.c[0], lane);
-    p.c[3] = hk::f_neg(p.c[3], lane);
-  }
-  const hk::Pt pc = hk::to_cached(p, lane);
-  int* o = out + row * kEntries * kPt;
-  hk::Pt e = identity(lane);
-#pragma unroll 1
-  for (int i = 0; i < kEntries; ++i) {
-    if (i == 1) {
-      e = p;
-    } else if (i > 1) {
-      e = hk::add_cached(e, pc, lane);
-    }
-    store_pt(o + i * kPt, cached ? hk::to_cached(e, lane) : e, lane);
-  }
+  const hk::lanes::Lane ln{lane / hk::lanes::G, lane % hk::lanes::G};
+  hk::lanes::multiples_row<kCached>(pts + row * kPt,
+                                    out + row * kEntries * kPt, negate != 0,
+                                    hk::kK2D, ln);
 }
 
 unsigned blocks_for(long long rows) {
@@ -217,9 +185,14 @@ extern "C" int hk_decompress(const int* y_limbs, const int* sign_bits,
 extern "C" int hk_point_multiples(const int* pts, int* out, long long rows,
                                   int cached, int negate, void* stream) {
   if (rows > 0) {
-    point_multiples_kernel<<<blocks_for(rows), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        pts, out, rows, cached, negate);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (cached) {
+      point_multiples_kernel<true><<<blocks_for(rows), kThreads, 0, s>>>(
+          pts, out, rows, negate);
+    } else {
+      point_multiples_kernel<false><<<blocks_for(rows), kThreads, 0, s>>>(
+          pts, out, rows, negate);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,9 @@ point-chain kernels (csrc/point_chain.cu), one launch per chain.
                    csrc/field25519_lanes.cuh too: one row a group of 8
                    lanes, four rows a warp, with a dedicated squaring
   point_multiples  the 16-entry table 0P..15P, extended (msm_table) or
-                   cached (the per-signature ladder's table of -A)
+                   cached (the per-signature ladder's table of -A), on
+                   csrc/field25519_lanes.cuh too: point_ladder's four
+                   lane groups a warp, one row a warp
 
 Each wrapper launches its kernel on a CUDA tensor and runs its plain
 version on a CPU one.  The plain versions are the reference's loops

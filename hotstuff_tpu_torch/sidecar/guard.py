@@ -55,7 +55,9 @@ from __future__ import annotations
 import itertools
 import logging
 import os
+import sys
 import threading
+import traceback
 from time import monotonic
 
 log = logging.getLogger("sidecar.guard")
@@ -369,7 +371,7 @@ class GuardStats:
 
 class _GuardedCall:
     __slots__ = ("key", "deadline_s", "started_at", "done", "result",
-                 "exc", "wedged")
+                 "exc", "wedged", "thread_id", "stack")
 
     def __init__(self, key: str, deadline_s: float, started_at: float):
         self.key = key
@@ -379,6 +381,8 @@ class _GuardedCall:
         self.result = None
         self.exc = None
         self.wedged = False
+        self.thread_id = None
+        self.stack = ""
 
 
 class LaunchGuard:
@@ -431,6 +435,12 @@ class LaunchGuard:
                 if call.done.is_set():
                     continue
                 if now - call.started_at > call.deadline_s:
+                    # Where the launch thread stands at the overrun: a
+                    # scripted wedge parks in an Event wait, a real stall
+                    # in whatever device or host call it waits on.
+                    frame = sys._current_frames().get(call.thread_id)
+                    if frame is not None:
+                        call.stack = "".join(traceback.format_stack(frame))
                     call.wedged = True
                     call.done.set()
 
@@ -467,6 +477,7 @@ class LaunchGuard:
                              daemon=True,
                              name=f"guard-launch-{next(self._ids)}")
         t.start()
+        call.thread_id = t.ident
         # The monitor guarantees a wake-up at the deadline, so this wait
         # is bounded by construction (evidence: _monitor_loop sets
         # call.done on every overrun; the monitor thread is started in
@@ -477,6 +488,9 @@ class LaunchGuard:
             self._calls.discard(call)
         if call.wedged:
             self.stats.note_wedge(key)
+            log.error("guard: launch %s overran its %gs deadline; its "
+                      "thread at the overrun:\n%s", key, call.deadline_s,
+                      call.stack.rstrip() or "(not yet running)")
             raise WedgedLaunch(key, call.deadline_s)
         self.deadlines.observe(key, self._clock() - call.started_at)
         if call.exc is not None:

@@ -31,6 +31,15 @@ shuffles by loop depth (cuobjdump); and the device busy time of a QC
 of 67 through the RLC program (``eddsa.verify_batch_rlc_pack``, warm,
 torch.profiler's device events, five runs), as ``chip_smoke.py`` phase
 6 takes it.
+
+``--kernel point_multiples``: the same for ``point_multiples`` at
+``chip_smoke.MULTIPLES_SHAPES``, the verify paths' shapes (8 and 1024
+rows cached from -P, 256 and 2048 extended), each on
+``chip_smoke.multiples_inputs`` (real points, random weak limbs, the
+identity, all-511 and all-0 rows): exact against its plain version,
+graph and Python ms, the point_multiples kernels' ptxas report,
+resident blocks an SM and shuffles by loop depth, and a QC of 67's
+device busy time.
 """
 
 from __future__ import annotations
@@ -123,19 +132,26 @@ def smoke_module():
     return mod
 
 
-def decompress_occupancy(root: str, build) -> dict:
-    """Resident blocks an SM of each decompress kernel in the root's
-    point_chain.cu at each block size, from a program that includes the
-    source (its kernels sit in the program's own anonymous namespace)."""
+def kernel_occupancy(root: str, build, prefix: str) -> dict:
+    """Resident blocks an SM of each kernel of the root's point_chain.cu
+    whose name starts with ``prefix``, at each block size, from a
+    program that includes the source (its kernels sit in the program's
+    own anonymous namespace).  A kernel templated on one bool is taken
+    at both values, named as ``chip_smoke.kernel_name`` names it
+    (``<0>``, ``<1>``)."""
     src = os.path.join(os.path.abspath(root), "hotstuff_tpu_torch", "ops",
                        "kern", "csrc", "point_chain.cu")
     with open(src) as f:
-        kernels = sorted(set(re.findall(
-            r"__global__ void (decompress\w*)\(", f.read())))
+        found = re.findall(r"(template\s*<\s*bool\s+\w+\s*>\s*)?"
+                           r"__global__\s+void\s+(" + prefix + r"\w*)\(",
+                           f.read())
+    kernels = sorted({(f"{k}<{v}>", f"{k}<{'true' if v else 'false'}>")
+                      if tmpl else (k, k)
+                      for tmpl, k in found for v in (0, 1)})
     calls = "".join(
-        f'  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, {k}, {t}, 0);'
-        f'\n  std::printf("{k} {t} %d\\n", b);\n'
-        for k in kernels for t in OCCUPANCY_BLOCKS)
+        f'  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, {sym}, {t}, '
+        f'0);\n  std::printf("{k} {t} %d\\n", b);\n'
+        for k, sym in kernels for t in OCCUPANCY_BLOCKS)
     work = os.path.join(REPO, "build", "ab", build.source_hash())
     os.makedirs(work, exist_ok=True)
     prog = os.path.join(work, "occupancy.cu")
@@ -182,6 +198,19 @@ def qc_busy_ms(dev) -> dict:
     return {"median": sorted(runs)[2], "runs": runs}
 
 
+def kernel_report(root: str, build, smoke, prefix: str, dev) -> dict:
+    """The kernels named ``prefix...``: ptxas's report, resident blocks
+    an SM and shuffles by loop depth; and a QC of 67's busy time."""
+    _, depths = smoke.sass_shuffles()
+    return {"ptxas": {k: v for k, v in
+                      smoke.ptxas_report(build.build_log()).items()
+                      if k.startswith(prefix)},
+            "occupancy": kernel_occupancy(root, build, prefix),
+            "shuffles_by_depth": {k: v for k, v in depths.items()
+                                  if k.startswith(prefix)},
+            "qc67_busy_ms": qc_busy_ms(dev)}
+
+
 def one_decompress(root: str) -> dict:
     import numpy as np
     import torch
@@ -204,18 +233,40 @@ def one_decompress(root: str) -> dict:
         fn = lambda: PC.decompress(y, sign)  # noqa: E731
         out[f"decompress_{n}_graph_ms"] = graph_ms(fn, 20)
         out[f"decompress_{n}_ms"] = smoke.time_ms(fn, 20)
-    out["ptxas"] = {k: v for k, v in
-                    smoke.ptxas_report(build.build_log()).items()
-                    if k.startswith("decompress")}
-    out["occupancy"] = decompress_occupancy(root, build)
-    _, depths = smoke.sass_shuffles()
-    out["shuffles_by_depth"] = {k: v for k, v in depths.items()
-                                if k.startswith("decompress")}
-    out["qc67_busy_ms"] = qc_busy_ms(dev)
-    return out
+    return dict(out, **kernel_report(root, build, smoke, "decompress", dev))
 
 
-KERNELS = {"final_exp": one_final_exp, "decompress": one_decompress}
+def one_point_multiples(root: str) -> dict:
+    import numpy as np
+    import torch
+
+    from hotstuff_tpu_torch.ops.kern import build
+    from hotstuff_tpu_torch.ops.kern import point_chain as PC
+
+    smoke = smoke_module()
+    dev = torch.device("cuda", 0)
+    build.load()
+    out = {"root": root, "sources": build.source_hash()}
+    rng = np.random.default_rng(20261019)
+    for n, cached, negate in smoke.MULTIPLES_SHAPES:
+        pts = smoke.multiples_inputs(rng, n, dev)
+        args = (pts, cached, negate)
+        err = smoke.max_abs_err(PC.point_multiples(*args),
+                                PC.point_multiples_plain(*args))
+        if err != 0:
+            raise SystemExit(f"point_multiples at {args[1:]} and {n} rows "
+                             f"differs from its plain version (max abs "
+                             f"err {err})")
+        label = f"point_multiples_{n}_{'cached' if cached else 'ext'}"
+        fn = lambda: PC.point_multiples(*args)  # noqa: E731
+        out[f"{label}_graph_ms"] = graph_ms(fn, 20)
+        out[f"{label}_ms"] = smoke.time_ms(fn, 20)
+    return dict(out, **kernel_report(root, build, smoke, "point_multiples",
+                                     dev))
+
+
+KERNELS = {"final_exp": one_final_exp, "decompress": one_decompress,
+           "point_multiples": one_point_multiples}
 
 
 def main(argv) -> int:

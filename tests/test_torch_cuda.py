@@ -180,7 +180,7 @@ def test_decompress_equals_plain_on_card(card, rows):
     assert torch.equal(pts, want_pts)
 
 
-@pytest.mark.parametrize("rows", [1, 7, 256])
+@pytest.mark.parametrize("rows", [1, 7, 8, 256, 1024])
 def test_point_multiples_equals_plain_on_card(card, rows):
     pts = _multiples(rows, np.random.default_rng(rows)).to(card)
     for cached, negate in ((False, False), (True, True), (True, False)):

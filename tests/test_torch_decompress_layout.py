@@ -30,8 +30,6 @@ import ctypes
 import importlib.util
 import os
 import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -46,6 +44,8 @@ from hotstuff_tpu_torch.ops import ed25519 as E  # noqa: E402
 from hotstuff_tpu_torch.ops import kern  # noqa: E402
 from hotstuff_tpu_torch.ops.kern import point_chain as PC  # noqa: E402
 from hotstuff_tpu_torch.ops.kern.field_mul import field_mul_plain  # noqa: E402
+
+import torch_lanes_harness as lanes_harness  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "hotstuff_tpu_torch", "ops", "kern", "csrc")
@@ -419,42 +419,7 @@ def test_decompress_plain_equals_jax_on_the_edge_rows(smoke):
 # The header on the host: a warp's lanes as threads
 # ---------------------------------------------------------------------------
 
-_HARNESS = r"""
-#include <barrier>
-#include <thread>
-#include <vector>
-#define __device__
-#define __forceinline__ inline
-#define __constant__
-struct int4 { int x, y, z, w; };
-inline int4 make_int4(int a, int b, int c, int d) { return int4{a, b, c, d}; }
-
-// One warp: 32 threads that meet at every shuffle and ballot.
-static std::barrier<>* warp_barrier;
-static int exchange[32];
-thread_local int lane_id;
-
-inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
-  exchange[lane_id] = v;
-  warp_barrier->arrive_and_wait();
-  const int r = exchange[(lane_id & ~(width - 1)) + (src & (width - 1))];
-  warp_barrier->arrive_and_wait();
-  return r;
-}
-
-inline unsigned __ballot_sync(unsigned, bool p) {
-  exchange[lane_id] = p;
-  warp_barrier->arrive_and_wait();
-  unsigned m = 0;
-  for (int i = 0; i < 32; ++i) m |= (exchange[i] ? 1u : 0u) << i;
-  warp_barrier->arrive_and_wait();
-  return m;
-}
-
-#include "field25519_lanes.cuh"
-
-namespace hl = hk::lanes;
-
+_ENTRY_POINTS = r"""
 // Each warp of four rows as 32 threads, the kernel's row mapping: group g
 // of warp w runs row 4w + g, an idle group the last row without storing.
 template <class F>
@@ -511,16 +476,8 @@ extern "C" void hh_decompress(const int* y, const int* sign, const int* d,
 def harness(tmp_path_factory):
     """field25519_lanes.cuh built with the host's C++ compiler into a
     ctypes library: the code the card runs, a warp's lanes as threads."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a host C++ compiler (g++)")
-    work = tmp_path_factory.mktemp("lanes_harness")
-    (work / "harness.cpp").write_text(_HARNESS)
-    lib = work / "libharness.so"
-    subprocess.run([cxx, "-O2", "-std=c++20", "-shared", "-fPIC", "-pthread",
-                    f"-I{CSRC}", str(work / "harness.cpp"), "-o", str(lib)],
-                   check=True, capture_output=True, timeout=300)
-    return ctypes.CDLL(str(lib))
+    return lanes_harness.build(tmp_path_factory, "lanes_harness",
+                               _ENTRY_POINTS)
 
 
 def _ptr(t: torch.Tensor):

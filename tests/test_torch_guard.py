@@ -33,6 +33,7 @@ Every wait is bounded; no assertion rests on a tight wall clock.
 from __future__ import annotations
 
 import json
+import logging
 import socket
 import subprocess
 import sys
@@ -205,6 +206,29 @@ def test_guard_wedges_a_hung_launch_within_deadline(guard):
     assert time.monotonic() - t0 < 30.0     # bounded, not a tight bar
     assert guard.stats.snapshot()["wedges"] == 1
     release.set()
+
+
+def test_guard_logs_the_launch_threads_stack_at_the_overrun(caplog):
+    """The port's guard names where an abandoned launch thread stood when
+    its deadline ran out (the reference logs nothing here)."""
+    g = pguard.LaunchGuard(deadlines=pguard.LaunchDeadlines(**FAST))
+    release = threading.Event()
+
+    def parked_launch():
+        release.wait()
+
+    try:
+        with caplog.at_level(logging.ERROR, logger="sidecar.guard"):
+            with pytest.raises(pguard.WedgedLaunch):
+                g.call("k", parked_launch)
+    finally:
+        release.set()
+        g.close()
+    (text,) = [r.getMessage() for r in caplog.records
+               if r.name == "sidecar.guard"]
+    assert text.startswith("guard: launch k overran its 0.15s deadline; "
+                           "its thread at the overrun:\n")
+    assert "in parked_launch" in text and "release.wait()" in text
 
 
 def test_guard_propagates_exceptions(guard):
